@@ -1,0 +1,374 @@
+"""Device anchor pipeline: fused sketch + join batches into a device hit
+buffer, then the reference's threshold filter on the device.
+
+The port of `phi_tpu/anchors/device.py`:
+  1. each batch of rows runs `sketch.kernels.join_rows3` (the rows3 kernel,
+     the cuckoo probe and the hit flatten) and is appended to the hit
+     buffers at a device-side offset (no host sync per batch);
+  2. the filter groups occurrences by (k-mer, vertex-run identity) through
+     a 2x32-bit polynomial prefix hash over the walks, resolves single-run
+     k-mers by a min == max uniformity test, and counts the remaining
+     ambiguous groups with the ownership-table loop;
+  3. the retained multi-vertex occurrences stay on the device for the
+     solver (DeviceOcc) and are copied to the host for decode.
+
+Where the reference falls back to its host hit path (N in a walk, more than
+255 haplotypes, a spectrum too large for the cuckoo table, a dense node
+chop, a cap or compaction overflow, unresolved ownership) this module
+raises NotImplementedError: those routes are not ported yet. The 32-bit
+hashes run in int64 lanes masked to 32 bits.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from phi_tpu.graph.pangenome import PangenomeGraph
+from phi_tpu_torch import state
+from phi_tpu_torch.ops.search import make_cuckoo, mul32
+from phi_tpu_torch.sketch.kernels import (BLK, HALO_PAD, ROWS, SUPER_BLOCKS,
+                                          block_cap, hit_cap, join_rows3,
+                                          pack_row_left, pack_rows_2bit,
+                                          row_base_nodes)
+
+_M32 = 0xFFFFFFFF
+# independent odd multipliers for the two polynomial prefix-hash moduli
+_POLY1 = 0x9E3779B1
+_POLY2 = 0x85EBCA77
+_MAX_SPAN = 64            # pw table size; spans are <= k <= 31 by packing
+_OWNER_ROUNDS = 16        # ownership-loop cap (expected ~3-4 rounds)
+_ROADMAP = "ROADMAP.md queue 1, item 6"
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 finalizer on int64 lanes holding u32 values."""
+    x = x ^ (x >> 16)
+    x = mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def build_ph(walk_mat: torch.Tensor, poly: int) -> torch.Tensor:
+    """Per-lane vertex prefix hashes PH[h, p] (int64 [H, P+1], u32 values)
+    of walk_mat[h, :p] under x -> x*poly + (v+1) mod 2^32, PH[:, 0] = 0.
+    A log-step (Hillis-Steele) scan of the affine maps (m, a): the combine
+    (ml, al) . (mr, ar) = (ml*mr, al*mr + ar) is associative mod 2^32, so
+    the result is exact."""
+    H, P = walk_mat.shape
+    a = (walk_mat + 1) & _M32
+    m = torch.full_like(a, poly)
+    s = 1
+    while s < P:
+        a_new = a.clone()
+        m_new = m.clone()
+        a_new[:, s:] = (mul32(a[:, :-s], m[:, s:]) + a[:, s:]) & _M32
+        m_new[:, s:] = mul32(m[:, :-s], m[:, s:])
+        a, m = a_new, m_new
+        s *= 2
+    return torch.cat([torch.zeros((H, 1), dtype=a.dtype, device=a.device),
+                      a], 1)
+
+
+def pw_tables() -> tuple[np.ndarray, np.ndarray]:
+    pw1 = np.ones(_MAX_SPAN + 2, np.int64)
+    pw2 = np.ones(_MAX_SPAN + 2, np.int64)
+    for i in range(1, _MAX_SPAN + 2):
+        pw1[i] = (int(pw1[i - 1]) * _POLY1) & _M32
+        pw2[i] = (int(pw2[i - 1]) * _POLY2) & _M32
+    return pw1, pw2
+
+
+def _bucket_size(n: int, minimum: int) -> int:
+    """Smallest {2^k, 3*2^(k-1)} >= n (64k multiples above 2^20): sizes the
+    ownership table exactly as the reference does."""
+    n = max(n, 1)
+    if n <= minimum:
+        return minimum
+    if n > (1 << 20):
+        return -(-n // (1 << 16)) * (1 << 16)
+    p = minimum
+    while True:
+        if n <= p:
+            return p
+        if n <= p + p // 2:
+            return p + p // 2
+        p *= 2
+
+
+@dataclasses.dataclass
+class DeviceOcc:
+    """Retained multi-vertex occurrences on the device, in (hap, position)
+    order, plus the filter's stats."""
+    dev_s: torch.Tensor      # int64 [n_occ] walk-position starts
+    dev_span: torch.Tensor   # int64 [n_occ] end - start
+    dev_id: torch.Tensor     # int64 [n_occ] spectrum ids
+    dev_hap: torch.Tensor    # int64 [n_occ]
+    dev_w: torch.Tensor      # float32 [n_occ] weights (1.0)
+    n_occ: int
+    n_model: int
+    filtered: int
+    per_hap_anchors: np.ndarray
+    max_span: int = 0        # max end - start among retained occurrences
+
+    def materialize(self):
+        """(occ_hap, occ_start, occ_end, occ_kmer) int32 host arrays."""
+        s = self.dev_s.cpu().numpy().astype(np.int32)
+        span = self.dev_span.cpu().numpy().astype(np.int32)
+        kid = self.dev_id.cpu().numpy().astype(np.int32)
+        hap = self.dev_hap.cpu().numpy().astype(np.int32)
+        return hap, s, s + span, kid
+
+
+def pack_row_starts(cumlens, rows, row_lanes: int, S_cap: int) -> np.ndarray:
+    """Per-row sorted node-start offsets (int32 [R, S_cap], padded with
+    row_lanes). Offsets are >= 1: a node boundary at the row start belongs
+    to the row's base node."""
+    R = len(rows)
+    buf = np.full((R, S_cap), row_lanes, np.int32)
+    for j, (si, start, nv, cont) in enumerate(rows):
+        if si < 0:
+            continue
+        cl = cumlens[si]
+        lo = np.searchsorted(cl, start, side="right")
+        hi = np.searchsorted(cl, start + row_lanes)
+        buf[j, :hi - lo] = (cl[lo:hi] - start).astype(np.int32)
+    return buf
+
+
+def _row_start_cap(cumlens, rows, row_lanes: int) -> int:
+    """Max node-start count over the rows, as a power of two (>= 1024):
+    the reference's width, so its dense-chop test gives the same answer."""
+    mx = 1
+    for (si, start, nv, cont) in rows:
+        if si < 0:
+            continue
+        cl = cumlens[si]
+        n = (np.searchsorted(cl, start + row_lanes)
+             - np.searchsorted(cl, start, side="right"))
+        mx = max(mx, int(n))
+    return 1 << max(10, int(mx - 1).bit_length())
+
+
+def plan_rows(seqs: list[np.ndarray], k: int, w: int,
+              super_blocks: int = SUPER_BLOCKS):
+    """Split every walk into rows (si, start, n_windows, cont) of at most
+    super_blocks * BLK windows. Walks shorter than one window are
+    skipped."""
+    halo = k + w - 2
+    sup = super_blocks * BLK
+    rows: list[tuple[int, int, int, int]] = []
+    for i, codes in enumerate(seqs):
+        L = len(codes)
+        if L < w + k - 1:
+            continue
+        if (codes >= 4).any():
+            raise NotImplementedError(
+                f"walk {i} contains non-ACGT bases: the host join for N "
+                f"walks is not yet ported to phi_tpu_torch ({_ROADMAP})")
+        for start in range(0, max(1, L - halo), sup):
+            rows.append((i, start, min(sup, L - halo - start),
+                         1 if start else 0))
+    return rows
+
+
+def pack_batch(seqs, cumlens, batch, row_lanes: int, S_cap: int):
+    """Host numpy arrays of one batch: (words uint32, starts, nvalid, left,
+    base_node, hap), the last five int32."""
+    return (pack_rows_2bit(seqs, batch, row_lanes),
+            pack_row_starts(cumlens, batch, row_lanes, S_cap),
+            np.array([r[2] for r in batch], np.int32),
+            pack_row_left(seqs, batch),
+            row_base_nodes(cumlens, batch),
+            np.array([max(r[0], 0) for r in batch], np.int32))
+
+
+def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
+                        k: int, w: int, sp_hi, sp_lo, threshold: float,
+                        *, device, rows_per_call: int | None = None,
+                        super_blocks: int | None = None):
+    """Fused sketch + join + anchor filter over all haplotypes on `device`.
+    Returns (per_hap_minimizers int64 [H], DeviceOcc)."""
+    device = torch.device(device)
+    R = rows_per_call or ROWS
+    SB = super_blocks or SUPER_BLOCKS
+    H = graph.num_walks
+    if H > 255:
+        raise NotImplementedError(
+            f"{H} haplotypes > 255 (u8 hap column): the host hit path is "
+            f"not yet ported to phi_tpu_torch ({_ROADMAP})")
+    if k > 31:
+        raise NotImplementedError(
+            "k > 31 needs the wide rows3w kernel, not yet ported to "
+            "phi_tpu_torch (ROADMAP.md queue 1, item 7)")
+    if k + w - 2 > HALO_PAD:
+        raise ValueError(f"k + w - 2 must be <= {HALO_PAD}")
+    if int(graph.walk_len.max(initial=0)) >= 1 << 26:
+        raise ValueError("a walk has >= 2^26 positions: the packed "
+                         "(s << 6) | span interval overflows 32 bits")
+    row_lanes = (SB + 1) * BLK
+    rows = plan_rows(seqs, k, w, SB)
+    ck = make_cuckoo(np.asarray(sp_hi), np.asarray(sp_lo))
+    if ck is None:
+        raise NotImplementedError(
+            f"read spectrum of {len(sp_hi)} keys does not fit the cuckoo "
+            f"table: the mixed-bucket v2 route is not yet ported to "
+            f"phi_tpu_torch ({_ROADMAP})")
+    cumlens = graph.walk_node_cumlen
+    S_cap = _row_start_cap(cumlens, rows, row_lanes)
+    if S_cap * 4 > row_lanes:
+        raise NotImplementedError(
+            "dense node chop (more than one node start per 4 bases): the v2 "
+            f"dense-plane route is not yet ported to phi_tpu_torch "
+            f"({_ROADMAP})")
+    C = block_cap(w)
+    cap_total = hit_cap(w, SB, R)
+    est_windows = sum(r[2] for r in rows)
+    CAP = int(est_windows * 2.6 / (w + 1)) + cap_total
+    n_batches = -(-len(rows) // R)
+    padded = rows + [(-1, 0, 0, 0)] * (n_batches * R - len(rows))
+
+    tkey, tid, seed = state.cuckoo_tensors(ck, device)
+    buf_se = torch.zeros(CAP, dtype=torch.int64, device=device)
+    buf_id = torch.full((CAP,), -1, dtype=torch.int64, device=device)
+    buf_hap = torch.zeros(CAP, dtype=torch.int64, device=device)
+    total = torch.zeros((), dtype=torch.int64, device=device)
+    lane = torch.arange(cap_total, device=device)
+    counts = []
+    for b in range(n_batches):
+        batch = padded[b * R:(b + 1) * R]
+        tens = state.batch_tensors(
+            *pack_batch(seqs, cumlens, batch, row_lanes, S_cap), device)
+        nm, nh, f_se, f_id, f_hap, cmax = join_rows3(
+            *tens, tkey, tid, seed, k, w, SB, C, cap_total)
+        # append at the device-side offset; an overflow clamps (and is
+        # caught below) instead of writing out of bounds
+        idx = total.clamp(max=CAP - cap_total) + lane
+        buf_se.index_copy_(0, idx, f_se)
+        buf_id.index_copy_(0, idx, f_id)
+        buf_hap.index_copy_(0, idx, f_hap.clamp(min=0))
+        total += (f_id >= 0).sum()
+        counts.append(torch.stack([nm, nh, cmax.long()]))
+    counts = torch.stack(counts).cpu().numpy() if counts \
+        else np.zeros((0, 3, R), np.int64)
+
+    total_hits = int(counts[:, 1].sum())
+    if total_hits > CAP - cap_total:
+        raise NotImplementedError(
+            f"hit buffer overflow ({total_hits} hits > {CAP - cap_total}): "
+            f"the host hit path is not yet ported to phi_tpu_torch "
+            f"({_ROADMAP})")
+    if counts[:, 2].max(initial=0) > C:
+        raise NotImplementedError(
+            f"rows3 block compaction overflow (max {int(counts[:, 2].max())}"
+            f" > C={C}): the host hit path is not yet ported to "
+            f"phi_tpu_torch ({_ROADMAP})")
+    per_hap_min = np.zeros(H, np.int64)
+    for b in range(n_batches):
+        if int(counts[b, 1].sum()) > cap_total:
+            raise NotImplementedError(
+                f"batch {b}: {int(counts[b, 1].sum())} hits > cap_total="
+                f"{cap_total}: the host hit path is not yet ported to "
+                f"phi_tpu_torch ({_ROADMAP})")
+        for j, (si, start, nv, cont) in enumerate(padded[b * R:(b + 1) * R]):
+            if si >= 0:
+                per_hap_min[si] += int(counts[b, 0, j])
+
+    walk_mat, _ = state.graph_tensors(graph, device)
+    occ = _finalize(buf_se[:total_hits], buf_id[:total_hits],
+                    buf_hap[:total_hits], walk_mat, threshold, len(sp_hi), H)
+    return per_hap_min, occ
+
+
+def _group_hashes(se, kid, hap, walk_mat):
+    """Per-occurrence (start, span, g1, g2): g1/g2 are 32-bit hashes of the
+    group (k-mer id, vertex run walk[hap][s..s+span])."""
+    Pp1 = walk_mat.shape[1] + 1
+    s = se >> 6
+    span = se & 63
+    i_lo = hap * Pp1 + s
+    i_hi = i_lo + span + 1
+    pw1, pw2 = (torch.from_numpy(p).to(se.device) for p in pw_tables())
+    sp = (span + 1).clamp(max=pw1.shape[0] - 1)
+    gs = []
+    for poly, pw, mix in ((_POLY1, pw1, 0x27D4EB2F), (_POLY2, pw2, 0x165667B1)):
+        ph = build_ph(walk_mat, poly).reshape(-1)
+        rh = (ph[i_hi] - mul32(ph[i_lo], pw[sp])) & _M32
+        gs.append(_fmix32(rh ^ _fmix32(mul32(kid, mix))))
+    return s, span, gs[0], gs[1]
+
+
+def _owners(ag1, ag2, aid, n_amb: int, th: float, kbad_uni):
+    """Exact group counts of the ambiguous occurrences by rounds of
+    ownership tables: each round, every table slot elects the minimum
+    (g1, g2) group among its unplaced occurrences and counts its members.
+    Returns (kbad, unresolved)."""
+    AM = max(2 * _bucket_size(n_amb + 1, 1 << 14), 8)
+    dev = ag1.device
+    unpl = torch.ones(ag1.shape[0], dtype=torch.bool, device=dev)
+    gcnt = torch.zeros(ag1.shape[0], dtype=torch.int64, device=dev)
+    r = 0
+    while r < _OWNER_ROUNDS and bool(unpl.any()):
+        slot = (_fmix32((ag1 + ((r * 0x9E3779B9) & _M32)) & _M32) ^ ag2) \
+            & (AM - 1)
+        t1 = torch.full((AM,), _M32, dtype=torch.int64, device=dev)
+        t1.scatter_reduce_(0, slot, torch.where(unpl, ag1, _M32), "amin")
+        cand = unpl & (t1[slot] == ag1)
+        t2 = torch.full((AM,), _M32, dtype=torch.int64, device=dev)
+        t2.scatter_reduce_(0, slot, torch.where(cand, ag2, _M32), "amin")
+        win = cand & (t2[slot] == ag2)
+        cnt_r = torch.zeros(AM, dtype=torch.int64, device=dev)
+        cnt_r.index_add_(0, slot, win.long())
+        gcnt = torch.where(win, cnt_r[slot], gcnt)
+        unpl = unpl & ~win
+        r += 1
+    kbad = kbad_uni.clone()
+    kbad[aid[gcnt.float() >= th]] = True
+    return kbad, bool(unpl.any())
+
+
+def _finalize(se, kid, hap, walk_mat, threshold: float, Ksp: int,
+              H: int) -> DeviceOcc:
+    """The reference's threshold filter over all hits (one pass; the hits
+    of the configurations this package runs fit the device at once)."""
+    dev = se.device
+    th = float(np.float32(threshold * H))
+    s, span, g1, g2 = _group_hashes(se, kid, hap, walk_mat)
+    u = g1 ^ g2
+    v = (g1 + g2) & _M32
+
+    def reduce(init, vals, how):
+        out = torch.full((Ksp,), init, dtype=torch.int64, device=dev)
+        return out.scatter_reduce_(0, kid, vals, how)
+
+    ktot = torch.zeros(Ksp, dtype=torch.int64, device=dev)
+    ktot.index_add_(0, kid, torch.ones_like(kid))
+    uniform = (reduce(_M32, u, "amin") == reduce(0, u, "amax")) \
+        & (reduce(_M32, v, "amin") == reduce(0, v, "amax"))
+    hot = ktot.float() >= th
+    k_amb = ~uniform & hot
+    n_amb = int(ktot[k_amb].sum())
+    amb = k_amb[kid]
+    kbad, unresolved = _owners(g1[amb], g2[amb], kid[amb], n_amb, th,
+                               uniform & hot)
+    if unresolved:
+        raise NotImplementedError(
+            f"ownership loop unresolved after {_OWNER_ROUNDS} rounds: the "
+            f"host hit path is not yet ported to phi_tpu_torch ({_ROADMAP})")
+    keep = ~kbad[kid]
+    per_hap = torch.bincount(hap[keep], minlength=H)
+    multi = keep & (span > 0)
+    kmulti = torch.zeros(Ksp, dtype=torch.bool, device=dev)
+    kmulti[kid[multi]] = True
+    n_occ = int(multi.sum())
+    return DeviceOcc(
+        dev_s=s[multi], dev_span=span[multi], dev_id=kid[multi],
+        dev_hap=hap[multi],
+        dev_w=torch.ones(n_occ, dtype=torch.float32, device=dev),
+        n_occ=n_occ, n_model=int(kmulti.sum()),
+        filtered=int((kbad & (ktot > 0)).sum()),
+        per_hap_anchors=per_hap.cpu().numpy().astype(np.int64),
+        max_span=int(span[multi].max()) if n_occ else 0)

@@ -1,0 +1,96 @@
+"""Command line of the PyTorch/CUDA port: the `phi_tpu` flag surface plus
+--device.
+
+    python -m phi_tpu_torch.cli -g graph.gfa -r reads.fq -o hap.fa \
+        [-k 31 -w 25 -R 100 -T 1.0 ... --device cuda]
+
+--device cuda (the default) needs a CUDA device: without one the command
+prints [E::main] and exits 1; it never runs on the CPU instead. --mesh,
+--save-index, --load-index, --race and -d are not ported yet and are
+rejected the same way.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from phi_tpu import logging as plog
+from phi_tpu.config import Options
+from phi_tpu_torch import __version__
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="phi-torch",
+        description="PHI: pangenome haplotype inference (PyTorch/CUDA port)")
+    p.add_argument("-g", dest="gfa", required=False, help="GFA file")
+    p.add_argument("-r", dest="reads", required=False, help="reads (FASTA/FASTQ)")
+    p.add_argument("-o", dest="out", required=False, help="output haplotype FASTA")
+    p.add_argument("-k", type=int, default=31, help="k-mer size [31]")
+    p.add_argument("-w", type=int, default=25, help="minimizer window size [25]")
+    p.add_argument("-R", type=float, default=100, help="recombination penalty [100]")
+    p.add_argument("-T", type=float, default=1.0, help="minimizer filter threshold [1.0]")
+    p.add_argument("-q", type=int, default=1, help="mode QP/ILP (compat) [1]")
+    p.add_argument("-m", type=int, default=1, help="mixed/integer (compat) [1]")
+    p.add_argument("-N", type=int, default=0, help="naive expanded graph (compat) [0]")
+    p.add_argument("-t", type=int, default=0, help="host threads (0 = auto)")
+    p.add_argument("-c", type=int, default=5000, help="max k-mer occurrence (compat) [5000]")
+    p.add_argument("-d", type=int, default=0, help="debug mode (not yet ported) [0]")
+    p.add_argument("--sweeps", type=int, default=256, help="DP sweep cap [256]")
+    p.add_argument("--lagrangian", type=int, default=8,
+                   help="Lagrangian refinement rounds when gap > 0 [8]")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="torch device for the sketch, join and solver [cuda]")
+    p.add_argument("--mesh", type=int, default=0, help="(not yet ported)")
+    p.add_argument("--save-index", default=None, metavar="NPZ",
+                   help="(not yet ported)")
+    p.add_argument("--load-index", default=None, metavar="NPZ",
+                   help="(not yet ported)")
+    p.add_argument("--race", default=None, help="(not yet ported)")
+    p.add_argument("--version", action="store_true", help="print version")
+    return p
+
+
+def options_from_args(args) -> Options:
+    return Options(k=args.k, w=args.w, recombination=args.R,
+                   threshold=args.T, is_qclp=args.q, is_mixed=args.m,
+                   is_naive_exp=args.N, num_threads=args.t, max_occ=args.c,
+                   debug=bool(args.d), max_sweeps=args.sweeps,
+                   lagrangian_rounds=args.lagrangian)
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    args = build_parser().parse_args(argv)
+    if args.version:
+        print(f"PHI version: {__version__}")
+        return 0
+    for flag, val in (("--mesh", args.mesh), ("--save-index", args.save_index),
+                      ("--load-index", args.load_index),
+                      ("--race", args.race), ("-d", args.d)):
+        if val:
+            sys.stderr.write(f"[E::main] {flag} is not yet ported to "
+                             "phi_tpu_torch\n")
+            return 1
+    if not (args.gfa and args.out and args.reads):
+        build_parser().print_usage(sys.stderr)
+        return 1
+
+    plog.reset_timer()
+    try:
+        from phi_tpu_torch.pipeline import resolve_device, run_pipeline
+        device = resolve_device(args.device)
+        run_pipeline(args.gfa, args.reads, args.out, options_from_args(args),
+                     device=device)
+    except (ValueError, OSError, RuntimeError) as e:
+        # load failures, unported routes (NotImplementedError) and a missing
+        # CUDA device end as [E::main] and exit 1, without a traceback
+        sys.stderr.write(f"[E::main] {e}\n")
+        return 1
+    plog.footer(__version__, ["phi-torch"] + argv)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,411 @@
+"""End-to-end orchestration on one torch device: graph + reads -> inferred
+haplotype FASTA. The counterpart of `phi_tpu/pipeline.py`'s main path, with
+the same [M::] phase-log lines and the same `timings` keys.
+
+Stages: graph ingest and the read spectrum on the host (native C++, shared
+with phi_tpu); the haplotype sketch, join and threshold filter on the
+device (anchors/device.py, through the rows3 kernel); the exact-credit DP on
+the device (solve/dp.py); decode, the Lagrangian / subgradient / exact /
+branch-and-bound certification ladder and emit on the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from phi_tpu import logging as plog
+from phi_tpu import native
+from phi_tpu.config import Options
+from phi_tpu.emit import recombination_report
+from phi_tpu.graph import PangenomeGraph, tensorize
+from phi_tpu.io.fasta import hap_name_from_paths, write_fasta
+from phi_tpu.io.gfa import read_gfa
+from phi_tpu.io.reads import load_read_batch
+from phi_tpu_torch.anchors.device import join_anchors_device
+from phi_tpu_torch.anchors.join import AnchorTables
+from phi_tpu_torch.solve.decode import DecodeResult, decode_path
+from phi_tpu_torch.solve.dp import LAST_TIMINGS, solve_dp
+from phi_tpu_torch.solve.prep import build_solver_tables
+
+_NOT_PORTED = "not yet ported to phi_tpu_torch"
+
+
+@dataclasses.dataclass
+class PipelineResult:
+    sequence: str
+    decode: DecodeResult
+    anchors: AnchorTables
+    recombination_count: int
+    report_segments: list[str]
+    graph: PangenomeGraph
+    timings: dict[str, float]
+
+
+def resolve_device(device) -> torch.device:
+    """The run's device; a CUDA device must exist (no CPU stand-in)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device cuda requested but no CUDA device is "
+                           "available (torch.cuda.is_available() is false)")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+_NO_NATIVE = ("the native library is unavailable "
+              "(make -C native needs g++ and zlib)")
+
+
+def native_available() -> bool:
+    """Whether the native host library (graph ingest, read spectrum) loads;
+    `make -C native` builds it on first use."""
+    return native.available()
+
+
+def read_spectrum(reads, k: int, w: int) -> tuple[np.ndarray, np.ndarray]:
+    """Distinct canonical minimizers of the reads as (hi, lo) uint32, from
+    the native per-read scan."""
+    if reads.concat is None or len(reads.concat) < w + k - 1:
+        z = np.zeros(0, np.uint32)
+        return z, z.copy()
+    keys = native.spectrum_native(reads.concat, reads.off, k, w)
+    if keys is None:
+        raise RuntimeError(_NO_NATIVE)
+    uniq = np.unique(keys)
+    return ((uniq >> np.uint64(32)).astype(np.uint32),
+            (uniq & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+
+def run_pipeline(gfa_path: str, reads_path: str, out_path: str | None,
+                 opt: Options, device="cuda") -> PipelineResult:
+    device = resolve_device(device)
+    for flag, val in (("--mesh", opt.mesh_devices), ("-d", opt.debug),
+                      ("--save-index", opt.save_index),
+                      ("--load-index", opt.load_index)):
+        if val:
+            raise NotImplementedError(f"{flag} is {_NOT_PORTED}")
+    if opt.k > 31:
+        raise NotImplementedError(f"k > 31 (the rows3w kernel) is "
+                                  f"{_NOT_PORTED}")
+    if not native_available():
+        raise RuntimeError(_NO_NATIVE)
+    if opt.num_threads:
+        native.set_threads(opt.num_threads)
+    timings: dict[str, float] = {}
+    t0 = time.time()
+
+    graph = tensorize(read_gfa(gfa_path))
+    if graph.n_vtx == 0:
+        raise ValueError(f"no segments parsed from {gfa_path} "
+                         "(is it a GFA v1.1 file?)")
+    if graph.num_walks == 0:
+        raise ValueError(f"{gfa_path} has no W-line haplotype walks; PHI "
+                         "requires walks (convert VCF input with phi-vcf2gfa)")
+    plog.log("main", f"Loaded graph from: {gfa_path}")
+    timings["load_graph"] = time.time() - t0
+
+    t1 = time.time()
+    reads = load_read_batch(reads_path)
+    timings["load_reads"] = time.time() - t1
+    plog.log("ILP_function",
+             f"Graph has {graph.n_vtx} vertices, {graph.num_walks} walks "
+             f"and read has {reads.n_reads} reads")
+    t1 = time.time()
+    spectrum = read_spectrum(reads, opt.k, opt.w)
+    timings["sketch_reads"] = time.time() - t1
+    if len(spectrum[0]) == 0:
+        raise NotImplementedError(f"an empty read spectrum (the host hit "
+                                  f"path) is {_NOT_PORTED}")
+
+    # --- haplotype sketch + join + threshold filter, on the device ---
+    t1 = time.time()
+    plog.raw("Number of Minimizers")
+    hap_codes = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
+    per_hap_min, dev_occ = join_anchors_device(
+        graph, hap_codes, opt.k, opt.w, spectrum[0], spectrum[1],
+        opt.threshold, device=device)
+    for h in range(graph.num_walks):
+        plog.raw(f"{graph.walk_names[h]} : {per_hap_min[h]}")
+    anchors = AnchorTables(
+        occ_hap=None, occ_start=None, occ_end=None, occ_kmer=None,
+        occ_weight=None, n_model_kmers=dev_occ.n_model,
+        spectrum_size=len(spectrum[0]), filtered_kmers=dev_occ.filtered,
+        per_hap_minimizers=per_hap_min,
+        per_hap_anchors=dev_occ.per_hap_anchors, device_occ=dev_occ)
+    plog.log("ILP_function", "Haplotypes sketched")
+    timings["sketch_haps"] = time.time() - t1
+    plog.log("ILP_function",
+             f"Indexed reads with spectrum size: {len(spectrum[0])}")
+
+    t1 = time.time()
+    plog.raw("Number of Anchors")
+    for h in range(graph.num_walks):
+        plog.raw(f"{graph.walk_names[h]} : {anchors.per_hap_anchors[h]}")
+    sp = max(anchors.spectrum_size, 1)
+    plog.log("ILP_function",
+             f"Filtered/Retained Minimizers: "
+             f"{anchors.filtered_kmers / sp * 100:.2f}/"
+             f"{(sp - anchors.filtered_kmers) / sp * 100:.2f}%")
+    plog.log("ILP_function",
+             f"{anchors.n_model_kmers * 100.0 / sp:.2f}% Minimizers are in ILP")
+    timings["anchors"] = time.time() - t1
+
+    # --- solve ---
+    mode = ("QP" if opt.is_qclp else "ILP")
+    plog.log("ILP_function", f"{mode} model started")
+    plog.log("ILP_function",
+             "Using Mixed Integer Programming" if opt.is_mixed
+             else "Using Integer Programming")
+    plog.log("ILP_function",
+             f"Compat: -q{opt.is_qclp} -m{opt.is_mixed} -N{opt.is_naive_exp} "
+             f"select equivalent formulations (DP solves the shared optimum "
+             f"directly); -c {opt.max_occ} accepted, unused")
+    t1 = time.time()
+    result = _solve_with_refinement(graph, anchors, opt, device)
+    for key, val in LAST_TIMINGS.items():
+        timings[f"solve_{key}"] = val
+    plog.log("ILP_function", "Model optimized")
+    plog.log("ILP_function",
+             f"DP sweeps: {result.n_sweeps}; lower bound: {result.dp_objective:.3f}; "
+             f"path objective: {result.true_objective:.3f}; "
+             f"gap: {max(0.0, result.true_objective - result.dp_objective):.3f}")
+    timings["solve"] = time.time() - t1
+
+    # --- report + emit ---
+    recomb, segs = recombination_report(graph, result.vertices, result.vertex_hap)
+    plog.raw(f"Recombination count: {recomb}")
+    plog.raw("Recombined haplotypes: " + "".join(segs))
+
+    t1 = time.time()
+    seq = graph.path_seq(result.vertices)
+    if out_path is not None:
+        write_fasta(out_path, hap_name_from_paths(gfa_path, reads_path), seq)
+        plog.log("ILP_function",
+                 f"Haplotype of size: {len(seq)} written to: {out_path}")
+    timings["emit"] = time.time() - t1
+    timings["total"] = time.time() - t0
+    return PipelineResult(
+        sequence=seq, decode=result, anchors=anchors,
+        recombination_count=recomb, report_segments=segs,
+        graph=graph, timings=timings)
+
+
+def _hydrate_tables(tables, anchors) -> None:
+    """Fill the host occurrence columns (decode's lazy straddle and S_row
+    reads need them) from the device anchors."""
+    anchors.materialize_device()
+    if tables.occ_hap is None:
+        tables.occ_hap = anchors.occ_hap
+        tables.occ_start = anchors.occ_start
+        tables.occ_end = anchors.occ_end
+        tables.occ_weight = anchors.occ_weight
+
+
+def _solve_and_decode(graph, tables, anchors, opt: Options,
+                      device) -> DecodeResult:
+    """One exact-credit fixpoint: the decoded path is the optimal relaxed
+    path and its value a valid bound."""
+    M, ends, sweeps, lb = solve_dp(tables, opt.max_sweeps, device)
+    _hydrate_tables(tables, anchors)
+    return decode_path(graph, tables, anchors, M, ends, sweeps, lb)
+
+
+def gap_tol(R: float) -> float:
+    """Certification tolerance for the duality gap. Objective differences
+    are a*R + b with integer a and b, so with integer R any two distinct
+    values differ by >= 1 and 1 - eps certifies; with fractional R < 1 the
+    smallest step is R itself; fractional R >= 1 keeps 0.5."""
+    if R > 0 and float(R).is_integer():
+        return 0.99   # 0.01 margin over observed f32 bound noise (~1e-3)
+    return 0.5 * min(1.0, R) if R > 0 else 0.0
+
+
+def _covered(anchors, segments) -> np.ndarray:
+    covered = np.zeros(len(anchors.occ_hap), bool)
+    for (sh, sq, sp) in segments:
+        covered |= ((anchors.occ_hap == sh) & (anchors.occ_start >= sq)
+                    & (anchors.occ_end <= sp))
+    return covered
+
+
+def _solve_with_refinement(graph: PangenomeGraph, anchors: AnchorTables,
+                           opt: Options, device) -> DecodeResult:
+    """One DP solve; if the decoded path's exact objective is above the DP
+    bound (duplicate k-mer credit), Lagrangian reweighting rounds, then the
+    exact small-case enumeration, projected subgradient ascent and
+    branch-and-bound, each only while the gap stays above gap_tol."""
+    from phi_tpu_torch.solve.prep import _bucket_layers, solver_layers
+    layers = solver_layers(graph, opt.k)
+    if anchors.device_occ.max_span > 0:
+        # shrink the W stack to the spans actually present
+        layers = min(layers, _bucket_layers(anchors.device_occ.max_span - 1))
+    tables = build_solver_tables(graph, anchors, opt.recombination, layers)
+    best = _solve_and_decode(graph, tables, anchors, opt, device)
+    best_bound = best.dp_objective
+    rounds = opt.lagrangian_rounds
+    tol = gap_tol(opt.recombination)
+    if best.true_objective - best_bound <= tol or rounds <= 0:
+        best.dp_objective = best_bound
+        return best
+
+    n_kmer_ids = int(anchors.occ_kmer.max()) + 1 if len(anchors.occ_kmer) else 0
+    mu = np.ones(n_kmer_ids, np.float32)
+    best_mu = mu  # multipliers achieving best_bound (branch-and-bound root)
+    relax_path = best  # the relaxation argmin path under the current mu
+    stall = 0
+    escalated = False
+    it = -1
+    while it + 1 < rounds:
+        it += 1
+        # covered-occurrence multiplicity per k-mer on the relaxation path
+        mult = np.bincount(anchors.occ_kmer[_covered(anchors,
+                                                     relax_path.segments)],
+                           minlength=n_kmer_ids)
+        dup = mult >= 2
+        release = (mult == 0) & (mu < 1.0)
+        if not dup.any() and not release.any():
+            break
+        # duplicated k-mers jump to mu = 0 (dual-optimal for this path);
+        # released ones ascend back by a Polyak step
+        mu[dup] = 0.0
+        if release.any():
+            g = np.zeros(n_kmer_ids)
+            g[release] = -1.0
+            step = max(best.true_objective - best_bound, 0.1) / float(release.sum())
+            mu = np.clip(mu - step * g, 0.0, 1.0).astype(np.float32)
+        anchors_w = dataclasses.replace(
+            anchors, occ_weight=mu[anchors.occ_kmer])
+        tables = build_solver_tables(graph, anchors_w, opt.recombination,
+                                     layers)
+        cand = _solve_and_decode(graph, tables, anchors_w, opt, device)
+        relax_path = cand
+        improved = cand.dp_objective > best_bound + 1e-6
+        if improved:
+            best_mu = mu.copy()
+        best_bound = max(best_bound, cand.dp_objective)
+        if cand.true_objective < best.true_objective - 1e-6:
+            best = cand
+            improved = True
+        if best.true_objective - best_bound <= tol:
+            break
+        stall = 0 if improved else stall + 1
+        if stall >= 3:
+            if escalated or best.true_objective - best_bound <= tol:
+                break
+            # the gap is still open: double the multiplier budget once
+            escalated = True
+            rounds += max(rounds, 4)
+            stall = 0
+            plog.log("ILP_function",
+                     f"Gap {best.true_objective - best_bound:.3f} > "
+                     f"{tol:g} after {it + 1} rounds; escalating to {rounds}")
+    if best.true_objective - best_bound > tol:
+        cand = _exact_small_case(graph, anchors, opt)
+        if cand is not None:
+            exact_obj, exact_res = cand
+            if exact_res.true_objective < best.true_objective:
+                best = exact_res
+            best_bound = max(best_bound, exact_obj)
+            plog.log("ILP_function",
+                     f"Exact small-case enumeration closed the gap: "
+                     f"optimum {exact_obj:.3f}")
+    if best.true_objective - best_bound > tol and n_kmer_ids:
+        best_mu, best_bound, best = _subgradient_phase(
+            graph, anchors, opt, layers, best_mu, best_bound, best, tol,
+            device)
+    if best.true_objective - best_bound > tol:
+        import os
+        from phi_tpu_torch.solve.bnb import branch_and_bound
+        bb_best, bb_bound = branch_and_bound(
+            graph, anchors, opt, tol,
+            mu=best_mu if n_kmer_ids else None, incumbent=best,
+            max_nodes=int(os.environ.get("PHI_TPU_BNB_NODES", "48")),
+            max_seconds=float(os.environ.get("PHI_TPU_BNB_SECS", "120")),
+            layers=layers, device=device)
+        if bb_best.true_objective < best.true_objective:
+            best = bb_best
+        best_bound = max(best_bound, bb_bound)
+        plog.log("ILP_function",
+                 f"Branch-and-bound: bound {bb_bound:.3f}, incumbent "
+                 f"{best.true_objective:.3f}, gap "
+                 f"{max(0.0, best.true_objective - best_bound):.3f}")
+    best.dp_objective = best_bound
+    return best
+
+
+def _subgradient_phase(graph: PangenomeGraph, anchors, opt: Options,
+                       layers, mu0: np.ndarray, best_bound: float, best,
+                       tol: float, device, max_iters: int = 40):
+    """Projected subgradient ascent on the Lagrangian dual from mu0:
+    g_i = 1 - (covered multiplicity of k-mer i on the relaxation argmin),
+    Polyak step (UB - L)/||g||^2 with backoff on stall. Returns
+    (best_mu, best_bound, best incumbent)."""
+    import os
+    max_iters = int(os.environ.get("PHI_TPU_SUBGRAD_ITERS", max_iters))
+    mu = mu0.astype(np.float64).copy()
+    best_mu = mu0
+    lam = 1.0
+    stall = 0
+    n_kmer_ids = len(mu)
+    for _ in range(max_iters):
+        anchors_w = dataclasses.replace(
+            anchors, occ_weight=mu.astype(np.float32)[anchors.occ_kmer])
+        tables = build_solver_tables(graph, anchors_w, opt.recombination,
+                                     layers)
+        cand = _solve_and_decode(graph, tables, anchors_w, opt, device)
+        improved = cand.dp_objective > best_bound + 1e-6
+        if improved:
+            best_bound = cand.dp_objective
+            best_mu = mu.astype(np.float32).copy()
+        if cand.true_objective < best.true_objective - 1e-6:
+            best = cand
+        if best.true_objective - best_bound <= tol:
+            break
+        mult = np.bincount(anchors.occ_kmer[_covered(anchors, cand.segments)],
+                           minlength=n_kmer_ids)
+        g = 1.0 - mult.astype(np.float64)
+        gnorm = float((g * g).sum())
+        if gnorm <= 0:
+            break
+        step = lam * max(best.true_objective - cand.dp_objective, 0.05) \
+            / gnorm
+        mu = np.clip(mu + step * g, 0.0, 1.0)
+        stall = 0 if improved else stall + 1
+        if stall >= 6:
+            lam *= 0.5
+            stall = 0
+            if lam < 1e-3:
+                break
+    return best_mu, best_bound, best
+
+
+# expanded-graph size caps under which exhaustive enumeration is cheap
+_EXACT_MAX_STATES = 3000
+_EXACT_MAX_EDGES = 6000
+
+
+def _exact_small_case(graph: PangenomeGraph, anchors: AnchorTables,
+                      opt: Options):
+    """Brute-force the expanded graph when it is small enough; returns
+    (exact objective, DecodeResult-shaped path) or None."""
+    from phi_tpu_torch.solve.decode import result_from_segments
+    from phi_tpu_torch.solve.exact import brute_force_optimum
+    from phi_tpu_torch.solve.prep import MAX_LAYERS, solver_layers
+    # the enumeration reads no straddle layers: cap them so a graph whose
+    # worst case needs more than MAX_LAYERS still gets its tables
+    tables = build_solver_tables(graph, anchors, opt.recombination,
+                                 min(solver_layers(graph, opt.k), MAX_LAYERS))
+    H, P = tables.state_vertex.shape
+    if H * P > _EXACT_MAX_STATES or len(tables.esrc_h) > _EXACT_MAX_EDGES:
+        return None
+    try:
+        exact, segs = brute_force_optimum(graph, tables, anchors)
+    except RuntimeError:  # too many paths
+        return None
+    if segs is None:
+        return None
+    return exact, result_from_segments(graph, tables, anchors, segs, exact)
