@@ -6,18 +6,27 @@
 Phases, in order; any failure exits non-zero:
   0. the native host library, then the card (nvidia-smi name and power
      limit) and the torch/CUDA versions; no CUDA device -> exit 1;
-  1. build the rows3 CUDA kernel from phi_tpu_torch/csrc (into
-     phi_tpu_torch/_build/);
-  2. the kernel against its plain torch twin on the card at the production
-     shape (R=8, SB=256, k=31, w=25, C=2048), plus (k, w) = (21, 11) and a
-     cnt > C case: outputs array-equal; medians of 10 timed runs each;
+  1. build the rows kernel family (rows3, rows3w, rows2) from
+     phi_tpu_torch/csrc/rows.cu (into phi_tpu_torch/_build/);
+  2. each kernel against its plain torch twin on the card at the production
+     shape (R=8, SB=256): rows3 at k=31 w=25 C=2048, plus (k, w) = (21, 11)
+     and a cnt > C case; rows3w at k=35 w=25 and k=63 w=11; rows2 at k=31
+     w=25: outputs array-equal; medians of 10 timed runs each;
   3. the whole path on a small instance (4 haplotypes x 200 kbp) on cuda
      and on cpu: byte-identical FASTA, same report, bound and objective;
   4. the main path at size (49 haplotypes x 5 Mbp, 30 bp nodes, 1x reads,
      -k 31 -w 25 -R 100), cold then warm, counting rows3 launches; the
-     kernel against its twin on the instance's first two packed batches.
-The second-to-last line is the kernels JSON, the last the device JSON.
-Instances are generated from a seed into phi_tpu_torch/_build/scale/.
+     kernel against its twin on the instance's first two packed batches;
+  5. wide k on the same instance (-k 35 -w 25 -R 100), cold then warm,
+     through rows3w; certified;
+  6. the v2 mixed route at chromosome length (4 haplotypes x 200 Mbp, 1x
+     reads, -k 31 -w 25 -R 100): a read spectrum above the cuckoo table's
+     8,000,000 keys, so rows2 runs and rows3 does not; certified; rows2
+     against its twin on the instance's first two packed batches.
+Phases 4-6 set every kernel's launch count to 0 just before each run and
+read them just after. The second-to-last line is the kernels JSON, the
+last the device JSON. Instances are generated from a seed into
+phi_tpu_torch/_build/scale/.
 """
 
 from __future__ import annotations
@@ -86,25 +95,27 @@ def rows3_inputs(seed: int, sb: int, rows: int = 8):
             tk.block_node_offsets(nd, base, sb))
 
 
-def compare_rows3(args, k: int, w: int, C: int) -> int:
-    """Kernel vs twin on the same card tensors; returns the max abs error
-    over (key, se, cnt) and raises if they differ."""
+def compare(name: str, args, *params) -> int:
+    """Kernel `name` (rows3, rows3w or rows2) against its twin on the same
+    card tensors; returns the max abs error over all outputs and raises if
+    they differ."""
     import torch
     from phi_tpu_torch.sketch import kernels as tk
-    want = tk.sketch_rows3_torch(*args, k, w, C)
-    got = tk.sketch_rows3(*args, k, w, C)
+    want = getattr(tk, f"sketch_{name}_torch")(*args, *params)
+    got = getattr(tk, f"sketch_{name}")(*args, *params)
     torch.cuda.synchronize()
     err = 0
-    for name, a, b in zip(("key", "se", "cnt"), want, got):
+    for i, (a, b) in enumerate(zip(want, got)):
         if a.shape != b.shape or a.dtype != b.dtype:
-            raise AssertionError(f"rows3 {name}: {b.dtype} {tuple(b.shape)}"
-                                 f" vs twin {a.dtype} {tuple(a.shape)}")
+            raise AssertionError(f"{name} output {i}: {b.dtype} "
+                                 f"{tuple(b.shape)} vs twin {a.dtype} "
+                                 f"{tuple(a.shape)}")
         diff = (a.long() - b.long()).abs()
         err = max(err, int(diff.max()) if diff.numel() else 0)
         if not torch.equal(a, b):
             bad = int((a != b).sum())
-            raise AssertionError(f"rows3 {name} differs from the twin at "
-                                 f"{bad} entries (k={k} w={w} C={C})")
+            raise AssertionError(f"{name} output {i} differs from the twin "
+                                 f"at {bad} entries {params}")
     return err
 
 
@@ -114,6 +125,83 @@ def run_port(paths, out, argv, device):
     opt = cli.options_from_args(cli.build_parser().parse_args(
         ["-g", paths["gfa"], "-r", paths["reads"], "-o", out] + argv))
     return run_pipeline(paths["gfa"], paths["reads"], out, opt, device=device)
+
+
+KERNELS = ("rows3", "rows3w", "rows2")
+
+
+def run_counted(paths, out, argv, dev):
+    """One run of the pipeline on the card with every kernel's launch count
+    set to 0 just before it; returns (result, wall s, launches by name,
+    peak device memory B)."""
+    import torch
+    from phi_tpu_torch.sketch import kernels as tk
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for n in KERNELS:
+        getattr(tk, f"sketch_{n}").launches = 0
+    t0 = time.time()
+    r = run_port(paths, out, argv, dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {n: getattr(tk, f"sketch_{n}").launches for n in KERNELS}
+    return r, wall, launches, torch.cuda.max_memory_allocated()
+
+
+def report(label: str, r, wall: float, launches, peak: int, truth: str,
+           R: float) -> bool:
+    """Log one run; returns whether it is certified."""
+    from phi_tpu_torch.eval import edit_stats
+    from phi_tpu_torch.pipeline import gap_tol
+    gap = max(0.0, r.decode.true_objective - r.decode.dp_objective)
+    es = edit_stats(r.sequence, truth)
+    log(f"{label}: wall {wall:.3f} s; timings "
+        + json.dumps({k: round(v, 4) for k, v in r.timings.items()}))
+    log(f"{label}: peak device memory {peak} B; launches "
+        f"{json.dumps(launches)}; spectrum {r.anchors.spectrum_size} keys; "
+        f"{r.anchors.device_occ.n_hits} join hits, "
+        f"{r.anchors.device_occ.n_occ} retained occurrences; "
+        f"anchors on {r.anchors.device_occ.dev_s.device}; solver on "
+        f"{r.decode.solver_device}; gap {gap:.3f} (certified "
+        f"{gap <= gap_tol(R)}); recombinations {r.recombination_count}; "
+        f"edit distance to truth {es.edit_distance} (identity "
+        f"{es.identity:.6f})")
+    return gap <= gap_tol(R)
+
+
+def on_cuda(r) -> bool:
+    return (r.anchors.device_occ.dev_s.device.type == "cuda"
+            and r.decode.solver_device.startswith("cuda"))
+
+
+def instance_batches(r, k: int, w: int, dev, v2: bool):
+    """The kernel inputs of the first two packed batches of a run's graph,
+    packed as its route packs them (node starts for v3, the dense node
+    plane for v2)."""
+    from phi_tpu_torch import state
+    from phi_tpu_torch.anchors.device import (_row_start_cap, pack_batch,
+                                              plan_rows)
+    from phi_tpu_torch.sketch import kernels as tk
+    g = r.graph
+    seqs = [g.walk_seq_codes(h) for h in range(g.num_walks)]
+    sb = tk.SUPER_BLOCKS
+    row_lanes = (sb + 1) * tk.BLK
+    rows = plan_rows(seqs, k, w, sb)
+    S_cap = None if v2 else _row_start_cap(g.walk_node_cumlen, rows,
+                                           row_lanes)
+    for b in range(2):
+        batch = rows[b * tk.ROWS:(b + 1) * tk.ROWS]
+        words, nodes, nv, left, base, _ = state.batch_tensors(
+            *pack_batch(seqs, g.walk_node_cumlen, batch, row_lanes, S_cap),
+            dev)
+        nd = nodes if v2 else tk.delta_plane(nodes, row_lanes)
+        yield (tk.unpack_2bit(words, row_lanes), nd, nv, left,
+               tk.block_node_offsets(nd, base, sb))
+
+
+def read_truth(paths) -> str:
+    with open(paths["truth"]) as f:
+        return "".join(ln.strip() for ln in f if not ln.startswith(">"))
 
 
 def main() -> int:
@@ -151,30 +239,44 @@ def main() -> int:
     # --- phase 1: build ---
     from phi_tpu_torch.sketch import kernels as tk
     t0 = time.time()
-    tk.build_rows3()
-    log(f"rows3 CUDA kernel built in {time.time() - t0:.3f} s")
+    tk.build_rows()
+    log(f"rows kernels (rows3, rows3w, rows2) built in {time.time() - t0:.3f}"
+        f" s")
 
-    # --- phase 2: kernel vs twin at the production shape ---
+    # --- phase 2: each kernel vs its twin at the production shape ---
     sb = tk.SUPER_BLOCKS
-    max_err = 0
+    err = dict.fromkeys(KERNELS, 0)
+    ms, plain_ms = {}, {}
+
+    def check(name, args, *params):
+        err[name] = max(err[name], compare(name, args, *params))
+
+    def timed(name, args, *params):
+        check(name, args, *params)
+        ms[name] = cuda_ms(lambda: getattr(tk, f"sketch_{name}")(
+            *args, *params))
+        plain_ms[name] = cuda_ms(lambda: getattr(tk, f"sketch_{name}_torch")(
+            *args, *params))
+        log(f"{name} {params} R=8 SB={sb}: equal to twin; kernel "
+            f"{ms[name]:.4f} ms, twin {plain_ms[name]:.4f} ms (median of 10,"
+            f" {card})")
+
     args = rows3_inputs(1, sb)
-    C = tk.block_cap(25)
-    max_err = max(max_err, compare_rows3(args, 31, 25, C))
-    ms = cuda_ms(lambda: tk.sketch_rows3(*args, 31, 25, C))
-    plain_ms = cuda_ms(lambda: tk.sketch_rows3_torch(*args, 31, 25, C))
-    log(f"rows3 k=31 w=25 R=8 SB={sb} C={C}: equal to twin; kernel "
-        f"{ms:.4f} ms, twin {plain_ms:.4f} ms (median of 10, {card})")
+    timed("rows3", args, 31, 25, tk.block_cap(25))
+    timed("rows3w", args, 35, 25, tk.block_cap(25))
+    timed("rows2", args, 31, 25)
     args = rows3_inputs(2, sb)
-    max_err = max(max_err, compare_rows3(args, 21, 11, tk.block_cap(11)))
-    max_err = max(max_err, compare_rows3(args, 21, 11, 256))
+    check("rows3", args, 21, 11, tk.block_cap(11))
+    check("rows3", args, 21, 11, 256)
+    check("rows3w", args, 63, 11, tk.block_cap(11))
     cnt = tk.sketch_rows3(*args, 21, 11, 256)[2]
     if not bool((cnt > 256).any()):
         return fail("the cnt > C case did not overflow C")
     log(f"rows3 k=21 w=11 (C={tk.block_cap(11)} and C=256, max cnt "
-        f"{int(cnt.max())}): equal to twin")
+        f"{int(cnt.max())}) and rows3w k=63 w=11: equal to twin")
 
     # --- phase 3: small instance, cuda against cpu ---
-    from phi_tpu_torch.eval import build_instance, edit_stats
+    from phi_tpu_torch.eval import build_instance
     small = build_instance(4, 200_000, coverage=2.0)
     res = {}
     for d in ("cuda", "cpu"):
@@ -193,70 +295,63 @@ def main() -> int:
         f" recombinations, bound {rc.decode.dp_objective:.3f}, objective "
         f"{rc.decode.true_objective:.3f})")
 
-    # --- phase 4: the main path at size ---
+    # --- phases 4 and 5: the main path at size, k = 31 and wide k = 35 ---
     t0 = time.time()
     big = build_instance(49, 5_000_000, coverage=1.0)
     log(f"instance 49 x 5 Mbp, 1x: ready in {time.time() - t0:.1f} s")
-    with open(big["truth"]) as f:
-        truth = "".join(ln.strip() for ln in f if not ln.startswith(">"))
-    flags = ["-k", "31", "-w", "25", "-R", "100"]
-    launches = None
-    for run in ("cold", "warm"):
-        out = os.path.join(os.path.dirname(big["gfa"]), f"port_{run}.fa")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        tk.sketch_rows3.launches = 0
-        t0 = time.time()
-        r = run_port(big, out, flags, dev)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        n_launch = tk.sketch_rows3.launches
-        if launches is None:
-            launches = n_launch
-        occ_dev = r.anchors.device_occ.dev_s.device
-        gap = max(0.0, r.decode.true_objective - r.decode.dp_objective)
-        from phi_tpu_torch.pipeline import gap_tol
-        es = edit_stats(r.sequence, truth)
-        log(f"{run}: wall {wall:.3f} s; timings "
-            + json.dumps({k: round(v, 4) for k, v in r.timings.items()}))
-        log(f"{run}: peak device memory {torch.cuda.max_memory_allocated()}"
-            f" B; rows3 launches {n_launch}; anchors on {occ_dev}; solver on"
-            f" {r.decode.solver_device}; gap {gap:.3f} (certified "
-            f"{gap <= gap_tol(100.0)}); recombinations "
-            f"{r.recombination_count}; edit distance to truth "
-            f"{es.edit_distance} (identity {es.identity:.6f})")
-        if n_launch <= 0:
-            return fail("the main path launched no rows3 kernel")
-        if occ_dev.type != "cuda" or not r.decode.solver_device.startswith(
-                "cuda"):
-            return fail("anchor or solver tensors are not on cuda")
+    truth = read_truth(big)
+    launches = {}
+    for phase, k, kern in ((4, 31, "rows3"), (5, 35, "rows3w")):
+        flags = ["-k", str(k), "-w", "25", "-R", "100"]
+        for run in ("cold", "warm"):
+            out = os.path.join(os.path.dirname(big["gfa"]),
+                               f"port_k{k}_{run}.fa")
+            r, wall, n, peak = run_counted(big, out, flags, dev)
+            certified = report(f"phase {phase} k={k} {run}", r, wall, n,
+                               peak, truth, 100.0)
+            launches.setdefault(kern, n[kern])
+            if n[kern] <= 0:
+                return fail(f"the k={k} path launched no {kern} kernel")
+            if not on_cuda(r):
+                return fail("anchor or solver tensors are not on cuda")
+            if phase == 5 and not certified:
+                return fail("the wide-k run is not certified")
+        for args in instance_batches(r, k, 25, dev, False):
+            check(kern, args, k, 25, tk.block_cap(25))
+        log(f"{kern} equal to twin on the 49 x 5 Mbp instance's first 2 "
+            f"batches (k={k})")
 
-    # the kernel against its twin on the instance's own first batches
-    from phi_tpu_torch import state
-    from phi_tpu_torch.anchors.device import (_row_start_cap, pack_batch,
-                                              plan_rows)
-    g = r.graph
-    seqs = [g.walk_seq_codes(h) for h in range(g.num_walks)]
-    row_lanes = (sb + 1) * tk.BLK
-    rows = plan_rows(seqs, 31, 25, sb)
-    S_cap = _row_start_cap(g.walk_node_cumlen, rows, row_lanes)
-    for b in range(2):
-        batch = rows[b * tk.ROWS:(b + 1) * tk.ROWS]
-        words, starts, nv, left, base, _ = state.batch_tensors(
-            *pack_batch(seqs, g.walk_node_cumlen, batch, row_lanes, S_cap),
-            dev)
-        nd = tk.delta_plane(starts, row_lanes)
-        args = (tk.unpack_2bit(words, row_lanes), nd, nv, left,
-                tk.block_node_offsets(nd, base, sb))
-        max_err = max(max_err, compare_rows3(args, 31, 25, C))
-    log("rows3 equal to twin on the 49 x 5 Mbp instance's first 2 batches")
+    # --- phase 6: the v2 mixed route at chromosome length ---
+    from phi_tpu_torch.ops.search import CUCKOO_MAX_KEYS
+    t0 = time.time()
+    chrom = build_instance(4, 200_000_000, coverage=1.0)
+    log(f"instance 4 x 200 Mbp, 1x: ready in {time.time() - t0:.1f} s")
+    out = os.path.join(os.path.dirname(chrom["gfa"]), "port.fa")
+    r, wall, n, peak = run_counted(chrom, out,
+                                   ["-k", "31", "-w", "25", "-R", "100"], dev)
+    certified = report("phase 6 v2 mixed", r, wall, n, peak,
+                       read_truth(chrom), 100.0)
+    launches["rows2"] = n["rows2"]
+    if r.anchors.spectrum_size <= CUCKOO_MAX_KEYS:
+        return fail(f"spectrum {r.anchors.spectrum_size} keys fits the "
+                    f"cuckoo table: the instance does not reach v2 mixed")
+    if n["rows2"] <= 0 or n["rows3"] != 0:
+        return fail(f"v2 mixed launches: {json.dumps(n)}")
+    if not on_cuda(r):
+        return fail("anchor or solver tensors are not on cuda")
+    if not certified:
+        return fail("the v2 mixed run is not certified")
+    for args in instance_batches(r, 31, 25, dev, True):
+        check("rows2", args, 31, 25)
+    log("rows2 equal to twin on the 4 x 200 Mbp instance's first 2 batches")
 
+    replaces = {"rows3": 1000, "rows3w": 1340, "rows2": 688}
     print(json.dumps({"kernels": [{
-        "name": "rows3", "route": "cuda",
-        "source": "phi_tpu_torch/csrc/rows3.cu",
-        "replaces": "phi_tpu/sketch/kernels.py:1000",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}), flush=True)
+        "name": n, "route": "cuda", "source": "phi_tpu_torch/csrc/rows.cu",
+        "replaces": f"phi_tpu/sketch/kernels.py:{replaces[n]}",
+        "launches": launches[n], "max_abs_err": err[n],
+        "ms": ms[n], "plain_ms": plain_ms[n]} for n in KERNELS]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,9 +2,10 @@
 
 The package mirrors `phi_tpu`'s layout and reuses its jax-free host modules
 (`io`, `graph.pangenome`, `native`, `emit`, `config`, `logging`). Device
-stages are torch ops on an explicit `torch.device`; the one TPU kernel on
-the main path (the rows3 sketch) is hand-written CUDA in `csrc/rows3.cu`,
-with a plain torch twin that runs on CPU tensors. Nothing here imports jax.
+stages are torch ops on an explicit `torch.device`; the TPU kernels of the
+device-anchor routes (the rows3, rows3w and rows2 sketches) are hand-written
+CUDA in `csrc/rows.cu`, each with a plain torch twin that runs on CPU
+tensors. Nothing here imports jax.
 """
 
 __version__ = "0.1.0"

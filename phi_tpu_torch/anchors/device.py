@@ -2,9 +2,17 @@
 buffer, then the reference's threshold filter on the device.
 
 The port of `phi_tpu/anchors/device.py`:
-  1. each batch of rows runs `sketch.kernels.join_rows3` (the rows3 kernel,
-     the cuckoo probe and the hit flatten) and is appended to the hit
-     buffers at a device-side offset (no host sync per batch);
+  1. each batch of rows runs one of the joins of `sketch.kernels`, chosen
+     under the reference's conditions:
+       - v3 (`join_rows3`, the rows3 kernel and the cuckoo slot probe) when
+         the read spectrum fits the cuckoo table and the node chop is not
+         denser than one start per 4 bases; `join_rows3w` (the rows3w
+         kernel) for 31 < k <= 63;
+       - v2 cuckoo (`join_rows2_ck`, the rows2 kernel) for a dense chop;
+       - v2 mixed (`join_rows2`, the rows2 kernel and the mixed-bucket
+         probe) when the spectrum does not fit the cuckoo table;
+     and is appended to the hit buffers at a device-side offset (no host
+     sync per batch);
   2. the filter groups occurrences by (k-mer, vertex-run identity) through
      a 2x32-bit polynomial prefix hash over the walks, resolves single-run
      k-mers by a min == max uniformity test, and counts the remaining
@@ -13,10 +21,10 @@ The port of `phi_tpu/anchors/device.py`:
      solver (DeviceOcc) and are copied to the host for decode.
 
 Where the reference falls back to its host hit path (N in a walk, more than
-255 haplotypes, a spectrum too large for the cuckoo table, a dense node
-chop, a cap or compaction overflow, unresolved ownership) this module
-raises NotImplementedError: those routes are not ported yet. The 32-bit
-hashes run in int64 lanes masked to 32 bits.
+255 haplotypes, k > 31 with a spectrum too large for the cuckoo table or a
+dense node chop, an emit, hit or compaction overflow, unresolved
+ownership) this module raises NotImplementedError: that path is not ported
+yet. The 32-bit hashes run in int64 lanes masked to 32 bits.
 """
 
 from __future__ import annotations
@@ -28,17 +36,19 @@ import torch
 
 from phi_tpu.graph.pangenome import PangenomeGraph
 from phi_tpu_torch import state
-from phi_tpu_torch.ops.search import make_cuckoo, mul32
-from phi_tpu_torch.sketch.kernels import (BLK, HALO_PAD, ROWS, SUPER_BLOCKS,
-                                          block_cap, hit_cap, join_rows3,
-                                          pack_row_left, pack_rows_2bit,
-                                          row_base_nodes)
+from phi_tpu_torch.ops.search import make_cuckoo, mixed_tensors, mul32
+from phi_tpu_torch.sketch.kernels import (BLK, HALO_PAD, NARROW_MAX_K, ROWS,
+                                          SUPER_BLOCKS, block_cap, emit_cap,
+                                          hit_cap, join_rows2, join_rows2_ck,
+                                          join_rows3, join_rows3w,
+                                          pack_row_deltas, pack_row_left,
+                                          pack_rows_2bit, row_base_nodes)
 
 _M32 = 0xFFFFFFFF
 # independent odd multipliers for the two polynomial prefix-hash moduli
 _POLY1 = 0x9E3779B1
 _POLY2 = 0x85EBCA77
-_MAX_SPAN = 64            # pw table size; spans are <= k <= 31 by packing
+_MAX_SPAN = 64            # pw table size; packed spans are <= 63
 _OWNER_ROUNDS = 16        # ownership-loop cap (expected ~3-4 rounds)
 _ROADMAP = "ROADMAP.md queue 1, item 6"
 
@@ -113,6 +123,7 @@ class DeviceOcc:
     filtered: int
     per_hap_anchors: np.ndarray
     max_span: int = 0        # max end - start among retained occurrences
+    n_hits: int = 0          # join hits the filter read (all routes)
 
     def materialize(self):
         """(occ_hap, occ_start, occ_end, occ_kmer) int32 host arrays."""
@@ -175,11 +186,14 @@ def plan_rows(seqs: list[np.ndarray], k: int, w: int,
     return rows
 
 
-def pack_batch(seqs, cumlens, batch, row_lanes: int, S_cap: int):
-    """Host numpy arrays of one batch: (words uint32, starts, nvalid, left,
-    base_node, hap), the last five int32."""
-    return (pack_rows_2bit(seqs, batch, row_lanes),
-            pack_row_starts(cumlens, batch, row_lanes, S_cap),
+def pack_batch(seqs, cumlens, batch, row_lanes: int, S_cap: int | None):
+    """Host numpy arrays of one batch: (words uint32, nodes, nvalid, left,
+    base_node, hap), the last four int32. nodes holds the node-start
+    offsets (int32 [R, S_cap]) of the v3 routes, or with S_cap None the
+    dense node plane (uint8 [R, row_lanes]) of the v2 routes."""
+    nodes = pack_row_deltas(cumlens, batch, row_lanes) if S_cap is None \
+        else pack_row_starts(cumlens, batch, row_lanes, S_cap)
+    return (pack_rows_2bit(seqs, batch, row_lanes), nodes,
             np.array([r[2] for r in batch], np.int32),
             pack_row_left(seqs, batch),
             row_base_nodes(cumlens, batch),
@@ -200,10 +214,6 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
         raise NotImplementedError(
             f"{H} haplotypes > 255 (u8 hap column): the host hit path is "
             f"not yet ported to phi_tpu_torch ({_ROADMAP})")
-    if k > 31:
-        raise NotImplementedError(
-            "k > 31 needs the wide rows3w kernel, not yet ported to "
-            "phi_tpu_torch (ROADMAP.md queue 1, item 7)")
     if k + w - 2 > HALO_PAD:
         raise ValueError(f"k + w - 2 must be <= {HALO_PAD}")
     if int(graph.walk_len.max(initial=0)) >= 1 << 26:
@@ -211,27 +221,51 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
                          "(s << 6) | span interval overflows 32 bits")
     row_lanes = (SB + 1) * BLK
     rows = plan_rows(seqs, k, w, SB)
-    ck = make_cuckoo(np.asarray(sp_hi), np.asarray(sp_lo))
-    if ck is None:
-        raise NotImplementedError(
-            f"read spectrum of {len(sp_hi)} keys does not fit the cuckoo "
-            f"table: the mixed-bucket v2 route is not yet ported to "
-            f"phi_tpu_torch ({_ROADMAP})")
     cumlens = graph.walk_node_cumlen
-    S_cap = _row_start_cap(cumlens, rows, row_lanes)
-    if S_cap * 4 > row_lanes:
+    # the reference's route choice: v3 needs the cuckoo table and a node
+    # chop of at most one start per 4 bases; k > 31 runs only on v3
+    ck = make_cuckoo(np.asarray(sp_hi), np.asarray(sp_lo))
+    S_cap = _row_start_cap(cumlens, rows, row_lanes) if ck is not None \
+        else None
+    dense = S_cap is not None and S_cap * 4 > row_lanes
+    wide = k > NARROW_MAX_K
+    if wide and (ck is None or dense):
+        why = (f"a read spectrum of {len(sp_hi)} keys that does not fit the "
+               f"cuckoo table" if ck is None else
+               "a dense node chop (more than one node start per 4 bases)")
         raise NotImplementedError(
-            "dense node chop (more than one node start per 4 bases): the v2 "
-            f"dense-plane route is not yet ported to phi_tpu_torch "
-            f"({_ROADMAP})")
+            f"k={k} > {NARROW_MAX_K} with {why}: the host hit path is not "
+            f"yet ported to phi_tpu_torch ({_ROADMAP})")
+    use_v3 = ck is not None and not dense
+    if not use_v3:
+        S_cap = None  # v2 uploads the dense node plane
     C = block_cap(w)
+    emitcap = emit_cap(w, SB)
     cap_total = hit_cap(w, SB, R)
     est_windows = sum(r[2] for r in rows)
     CAP = int(est_windows * 2.6 / (w + 1)) + cap_total
     n_batches = -(-len(rows) // R)
     padded = rows + [(-1, 0, 0, 0)] * (n_batches * R - len(rows))
 
-    tkey, tid, seed = state.cuckoo_tensors(ck, device)
+    if ck is not None:
+        tkey, tid, seed = state.cuckoo_tensors(ck, device)
+    else:
+        table = mixed_tensors(sp_hi, sp_lo, device)
+
+    def join(tens):
+        """(n_min, n_hit, f_se, f_id, f_hap, over): over is the per-row
+        count held against its cap, the largest block count (v3, cap C) or
+        the emitted lanes (v2, cap emitcap)."""
+        if use_v3:
+            return (join_rows3w if wide else join_rows3)(
+                *tens, tkey, tid, seed, k, w, SB, C, cap_total)
+        if ck is None:
+            out = join_rows2(*tens, table, k, w, SB, emitcap, cap_total)
+        else:
+            out = join_rows2_ck(*tens, tkey, tid, seed, k, w, SB, emitcap,
+                                cap_total)
+        return out + (out[0],)
+
     buf_se = torch.zeros(CAP, dtype=torch.int64, device=device)
     buf_id = torch.full((CAP,), -1, dtype=torch.int64, device=device)
     buf_hap = torch.zeros(CAP, dtype=torch.int64, device=device)
@@ -240,10 +274,8 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
     counts = []
     for b in range(n_batches):
         batch = padded[b * R:(b + 1) * R]
-        tens = state.batch_tensors(
-            *pack_batch(seqs, cumlens, batch, row_lanes, S_cap), device)
-        nm, nh, f_se, f_id, f_hap, cmax = join_rows3(
-            *tens, tkey, tid, seed, k, w, SB, C, cap_total)
+        nm, nh, f_se, f_id, f_hap, over = join(state.batch_tensors(
+            *pack_batch(seqs, cumlens, batch, row_lanes, S_cap), device))
         # append at the device-side offset; an overflow clamps (and is
         # caught below) instead of writing out of bounds
         idx = total.clamp(max=CAP - cap_total) + lane
@@ -251,7 +283,7 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
         buf_id.index_copy_(0, idx, f_id)
         buf_hap.index_copy_(0, idx, f_hap.clamp(min=0))
         total += (f_id >= 0).sum()
-        counts.append(torch.stack([nm, nh, cmax.long()]))
+        counts.append(torch.stack([nm, nh, over.long()]))
     counts = torch.stack(counts).cpu().numpy() if counts \
         else np.zeros((0, 3, R), np.int64)
 
@@ -261,11 +293,13 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
             f"hit buffer overflow ({total_hits} hits > {CAP - cap_total}): "
             f"the host hit path is not yet ported to phi_tpu_torch "
             f"({_ROADMAP})")
-    if counts[:, 2].max(initial=0) > C:
+    over_cap = C if use_v3 else emitcap
+    if counts[:, 2].max(initial=0) > over_cap:
+        what = "rows3 block compaction" if use_v3 else "v2 emitted-lane"
         raise NotImplementedError(
-            f"rows3 block compaction overflow (max {int(counts[:, 2].max())}"
-            f" > C={C}): the host hit path is not yet ported to "
-            f"phi_tpu_torch ({_ROADMAP})")
+            f"{what} overflow (max {int(counts[:, 2].max())} > "
+            f"{'C' if use_v3 else 'emitcap'}={over_cap}): the host hit path "
+            f"is not yet ported to phi_tpu_torch ({_ROADMAP})")
     per_hap_min = np.zeros(H, np.int64)
     for b in range(n_batches):
         if int(counts[b, 1].sum()) > cap_total:
@@ -280,6 +314,7 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
     walk_mat, _ = state.graph_tensors(graph, device)
     occ = _finalize(buf_se[:total_hits], buf_id[:total_hits],
                     buf_hap[:total_hits], walk_mat, threshold, len(sp_hi), H)
+    occ.n_hits = total_hits
     return per_hap_min, occ
 
 

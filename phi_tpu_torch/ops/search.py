@@ -1,12 +1,16 @@
-"""Two-choice cuckoo table over the read spectrum, and its probe.
+"""The read-spectrum tables of the join and their probes.
 
-`make_cuckoo` is the host numpy build of `phi_tpu/ops/search.py` (same
-hashes, seeds and placement, so both packages build the same table). The
-probe is torch gathers on int64 keys; the 32-bit hash runs in int64 lanes
+`make_cuckoo` (the two-choice cuckoo table) and `make_mixed_buckets` (the
+mixed-key sorted table, for spectra of more than CUCKOO_MAX_KEYS keys) are
+the host numpy builds of `phi_tpu/ops/search.py` (same hashes, seeds,
+placement and order, so both packages build the same tables). The probes
+are torch gathers on int64 keys; the 32-bit hashes run in int64 lanes
 masked to 32 bits after every multiply and add.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -38,7 +42,8 @@ def _ck_h_np(hi, lo, c1, c2, seed, M):
 def make_cuckoo(sp_hi_np, sp_lo_np, max_attempts: int = 3):
     """(Thi, Tlo, Tid, seed, M) or None (empty or oversized spectrum, or a
     failed build). Thi/Tlo hold UMAX at empty slots (a canonical
-    (UMAX, UMAX) pair is impossible for k <= 31)."""
+    (UMAX, UMAX) pair is impossible for k <= 31; a k > 31 key folded to 64
+    bits equals it with probability 2^-64, as in the reference)."""
     n = len(sp_hi_np)
     if n == 0 or n > CUCKOO_MAX_KEYS:
         return None
@@ -97,6 +102,86 @@ def mul32(x: torch.Tensor, y) -> torch.Tensor:
     of such values or a constant below 2^32. torch int64 products wrap
     mod 2^64, which keeps the low 32 bits exact."""
     return (x * y) & _M32
+
+
+# Mixed-key table, for spectra the cuckoo table does not take: sorted by
+# (m, lo) with m = hi*C1 + lo*C2 mod 2^32, which identifies (hi, lo) since C1
+# is odd and spreads skewed minimizer values evenly over first-probe buckets
+# of the top `bits` of m; perm maps a sorted position to the spectrum id.
+MIX_C1 = 0x9E3779B1
+MIX_C2 = 0x85EBCA77
+MIXED_BUCKET_BITS = 16
+
+
+def mixed_bits_for(bucket: int) -> int:
+    """First-probe width for a spectrum of `bucket` keys: about one key
+    per bucket, from 16 to 22 bits."""
+    return min(22, max(MIXED_BUCKET_BITS, (max(bucket, 2) - 1).bit_length()))
+
+
+def mix_key_np(hi, lo):
+    return (hi.astype(np.uint32) * np.uint32(MIX_C1)
+            + lo.astype(np.uint32) * np.uint32(MIX_C2))
+
+
+def make_mixed_buckets(sp_hi_np, sp_lo_np, bits: int):
+    """Host build of the mixed-key table: (m_sorted, lo_sorted, perm, off,
+    rounds), off the first sorted position of each of the 2^bits buckets
+    (plus the end) and rounds the bisection depth of the fullest bucket."""
+    m = mix_key_np(sp_hi_np, sp_lo_np)
+    order = np.lexsort((sp_lo_np, m)).astype(np.int32)
+    m_sorted = m[order]
+    lo_sorted = sp_lo_np[order]
+    thresholds = (np.arange((1 << bits) + 1, dtype=np.uint64)
+                  << np.uint64(32 - bits))
+    thresholds = np.minimum(thresholds,
+                            np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    off = np.searchsorted(m_sorted, thresholds, side="left").astype(np.int32)
+    off[-1] = len(m_sorted)
+    max_bucket = int(np.diff(off).max()) if len(off) > 1 else len(m_sorted)
+    rounds = max(1, math.ceil(math.log2(max_bucket + 1)))
+    return m_sorted, lo_sorted, order, off, rounds
+
+
+def pair_isin_mixed(sp_m, sp_lo, perm, bucket_off, q: torch.Tensor,
+                    rounds: int, bits: int):
+    """(found, spectrum id) of int64 query keys against a mixed-key table
+    held as int64 columns (sp_m and sp_lo hold u32 values): `rounds`
+    bisection steps inside the query's first-probe bucket over (m, lo) as
+    two columns. Slots with perm -1 (sentinel pads) never match."""
+    n = sp_m.shape[0]
+    if n == 0:
+        return (torch.zeros(q.shape, dtype=torch.bool, device=q.device),
+                torch.zeros(q.shape, dtype=torch.int64, device=q.device))
+    qh = (q >> 32) & _M32
+    ql = q & _M32
+    qm = (mul32(qh, MIX_C1) + mul32(ql, MIX_C2)) & _M32
+    b = qm >> (32 - bits)
+    lo = bucket_off[b]
+    hi = bucket_off[b + 1]
+    for _ in range(rounds):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        mid_c = mid.clamp(max=n - 1)
+        mm = sp_m[mid_c]
+        less = (mm < qm) | ((mm == qm) & (sp_lo[mid_c] < ql))
+        lo = torch.where(active & less, mid + 1, lo)
+        hi = torch.where(active & ~less, mid, hi)
+    idx = lo.clamp(max=n - 1)
+    found = (lo < n) & (sp_m[idx] == qm) & (sp_lo[idx] == ql)
+    ids = perm[idx]
+    return found & (ids >= 0), ids
+
+
+def mixed_tensors(sp_hi, sp_lo, device):
+    """The mixed-key table of a spectrum on `device`: (m, lo, perm, off)
+    int64 tensors, then rounds and bits, in pair_isin_mixed's order."""
+    sp_hi = np.asarray(sp_hi, np.uint32)
+    sp_lo = np.asarray(sp_lo, np.uint32)
+    bits = mixed_bits_for(len(sp_hi))
+    *cols, rounds = make_mixed_buckets(sp_hi, sp_lo, bits)
+    return tuple(torch.from_numpy(np.asarray(c, np.int64)).to(device)
+                 for c in cols) + (rounds, bits)
 
 
 def ck_mix(x: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,7 @@ the same [M::] phase-log lines and the same `timings` keys.
 
 Stages: graph ingest and the read spectrum on the host (native C++, shared
 with phi_tpu); the haplotype sketch, join and threshold filter on the
-device (anchors/device.py, through the rows3 kernel); the exact-credit DP on
+device (anchors/device.py, through the rows kernels); the exact-credit DP on
 the device (solve/dp.py); decode, the Lagrangian / subgradient / exact /
 branch-and-bound certification ladder and emit on the host.
 """
@@ -68,7 +68,8 @@ def native_available() -> bool:
 
 def read_spectrum(reads, k: int, w: int) -> tuple[np.ndarray, np.ndarray]:
     """Distinct canonical minimizers of the reads as (hi, lo) uint32, from
-    the native per-read scan."""
+    the native per-read scan; for k > 31 the keys are the 64-bit folds
+    (fold128_64) of the 126-bit canonical k-mers."""
     if reads.concat is None or len(reads.concat) < w + k - 1:
         z = np.zeros(0, np.uint32)
         return z, z.copy()
@@ -88,9 +89,6 @@ def run_pipeline(gfa_path: str, reads_path: str, out_path: str | None,
                       ("--load-index", opt.load_index)):
         if val:
             raise NotImplementedError(f"{flag} is {_NOT_PORTED}")
-    if opt.k > 31:
-        raise NotImplementedError(f"k > 31 (the rows3w kernel) is "
-                                  f"{_NOT_PORTED}")
     if not native_available():
         raise RuntimeError(_NO_NATIVE)
     if opt.num_threads:

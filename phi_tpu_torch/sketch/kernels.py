@@ -1,27 +1,41 @@
-"""The rows3 haplotype sketch and join on the device.
+"""The haplotype sketch and join on the device: the rows kernel family.
 
-`sketch_rows3` is the port of the Pallas TPU kernel
-`phi_tpu/sketch/kernels.py:_make_kernel_rows3`. On a CUDA tensor it launches
-the hand-written Hopper kernel in `csrc/rows3.cu` (built with nvcc on first
-use into `_build/`, loaded with ctypes); on a CPU tensor it runs the plain
-torch twin `sketch_rows3_torch`, which computes the same outputs over whole
-rows in int64.
+Three kernels, ports of the Pallas TPU kernels in
+`phi_tpu/sketch/kernels.py`, are compile-time variants of one hand-written
+Hopper source, `csrc/rows.cu` (built with nvcc on first use into `_build/`,
+loaded with ctypes):
+  * `sketch_rows3` (`_make_kernel_rows3`): k <= 31, the emitted minimizers
+    of each 8192-lane block left-compacted into C slots (the main path);
+  * `sketch_rows3w` (`_make_kernel_rows3w`): the same for 31 < k <= 63,
+    with a 126-bit key;
+  * `sketch_rows2` (`_make_kernel_rows2`): k <= 31, full-lane outputs and
+    an emit flag (the v2 route: spectra too large for the cuckoo table,
+    and dense node chops).
+On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
+its plain torch twin (`sketch_rows3_torch`, ...), which computes the same
+outputs over whole rows in int64.
 
-What bounds the kernel, and its design, are in the source note at the top
-of `csrc/rows3.cu`: it is integer-ALU bound (key building and the
+What bounds the kernels, and their design, are in the source note at the
+top of `csrc/rows.cu`: they are integer-ALU bound (key building and the
 window-of-w minimum), and every block is independent because the TPU
-kernel's grid carries (the dedup carry, the node-count carry, the roll
+kernels' grid carries (the dedup carry, the node-count carry, the roll
 network compaction) become a one-base left context, per-block node offsets
 and a block-wide scan.
 
-Around the kernel, `join_rows3` is the port of `_pallas_join_rows3_ck`: the
-2-bit unpack, the node-start plane, the cuckoo slot probe, the hit flatten
-and the slot -> spectrum id remap, as torch ops.
+Around the kernels, the joins are torch ops: `join_rows3` and `join_rows3w`
+port `_pallas_join_rows3_ck` and `_pallas_join_rows3w_ck` (the 2-bit
+unpack, the node-start plane, the kernel, for rows3w the fold of the key to
+the 64-bit join key, the cuckoo slot probe, the hit flatten and the slot ->
+spectrum id remap); `join_rows2` and `join_rows2_ck` port
+`_pallas_join_rows2` (mixed-bucket probe) and `_pallas_join_rows2_ck`
+(cuckoo probe), with the emitted-lane compaction into [R, emitcap].
 
 Keys are int64: a k <= 31 canonical k-mer is (hi << 32) | lo, which orders
 like the reference's (hi, lo) pair; a dead lane is -1, i.e. (UMAX, UMAX).
-Packed intervals `se` are int64 holding the reference's u32 value
-((s << 6) | min(e - s, 63)), UMAX32 on dead lanes.
+A 31 < k <= 63 key is two int64 words, hi = w3:w2 (below 2^62) and
+lo = w1:w0 (all 64 bits used, so the twin compares it with its sign bit
+flipped); a dead slot is (-1, -1). Packed intervals `se` are int64 holding
+the reference's u32 value ((s << 6) | min(e - s, 63)), UMAX32 on dead lanes.
 """
 
 from __future__ import annotations
@@ -42,12 +56,15 @@ SUPER_BLOCKS = 256  # blocks per row: 2,097,152 windows
 ROWS = 8            # rows per batch
 UMAX32 = 0xFFFFFFFF
 DEAD_KEY = -1       # (UMAX, UMAX) as one int64
+NARROW_MAX_K = 31   # one int64 key; 31 < k <= WIDE_MAX_K takes rows3w
+WIDE_MAX_K = 63
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CSRC = os.path.join(_PKG, "csrc", "rows3.cu")
+_CSRC = os.path.join(_PKG, "csrc", "rows.cu")
 _BUILD_DIR = os.path.join(_PKG, "_build")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
+_SIGN = -(1 << 63)  # int64 sign bit: x ^ _SIGN orders like x as unsigned
 
 
 # ----------------------------------------------------------- host packers
@@ -84,12 +101,40 @@ def pack_row_left(seqs, rows) -> np.ndarray:
     return out
 
 
+def pack_row_deltas(cumlens, rows, row_lanes: int) -> np.ndarray:
+    """Dense node-start-count plane of the v2 rows (uint8 [R, row_lanes]):
+    deltas[j] = number of walk_node_cumlen entries equal to start + j, with
+    lane 0 forced to 0 (the row-start base's node is base_node); saturates
+    at 255. The same plane as delta_plane of the row's start offsets."""
+    R = len(rows)
+    buf = np.zeros((R, row_lanes), np.uint8)
+    for j, (si, start, nv, cont) in enumerate(rows):
+        if si < 0:
+            continue
+        cl = cumlens[si]
+        lo = np.searchsorted(cl, start, side="right")
+        hi = np.searchsorted(cl, start + row_lanes)
+        starts = (cl[lo:hi] - start).astype(np.int64)
+        if len(starts):
+            cnt = np.bincount(starts, minlength=row_lanes)[:row_lanes]
+            buf[j] = np.minimum(cnt, 255).astype(np.uint8)
+            buf[j, 0] = 0
+    return buf
+
+
 def hit_cap(w: int, super_blocks: int = SUPER_BLOCKS,
             rows_per_call: int = ROWS) -> int:
     """cap_total: the flattened hits one batch can hold (the reference's
     join_caps); a batch with more raises."""
     sup = super_blocks * BLK
     return 1 << max(15, (2 * rows_per_call * sup // (w + 1)).bit_length())
+
+
+def emit_cap(w: int, super_blocks: int = SUPER_BLOCKS) -> int:
+    """emitcap: the emitted lanes per row the v2 join compacts (the
+    reference's join_caps, 1.3x over the ~2/(w+1) density); a row with more
+    raises, and n_min stays exact."""
+    return max(1024, 13 * super_blocks * BLK // (5 * (w + 1)) + 64)
 
 
 def block_cap(w: int) -> int:
@@ -142,16 +187,50 @@ def block_node_offsets(nd: torch.Tensor, base_node: torch.Tensor,
     return (excl + base_node.long()[:, None]).to(torch.int32)
 
 
-# ------------------------------------------------------- rows3 and twin
+def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 lanes holding u64 bits."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
 
-def _check_rows3(codes, nd, nvalid, left, node_off, k, w, C) -> None:
-    if not 1 <= k <= 31:
-        raise ValueError(f"rows3 needs 1 <= k <= 31, got k={k}")
+
+def _i64(c: int) -> int:
+    """A u64 constant as the int64 with the same bits."""
+    return c - (1 << 64) if c >> 63 else c
+
+
+_MIX1 = _i64(0xBF58476D1CE4E5B9)
+_MIX2 = _i64(0x94D049BB133111EB)
+_GOLD = _i64(0x9E3779B97F4A7C15)
+
+
+def _mix64(x: torch.Tensor) -> torch.Tensor:
+    """splitmix64 finalizer on int64 lanes (phi_tpu.sketch.encode.mix64_np;
+    int64 products wrap mod 2^64)."""
+    x = x ^ _shr(x, 30)
+    x = x * _MIX1
+    x = x ^ _shr(x, 27)
+    x = x * _MIX2
+    return x ^ _shr(x, 31)
+
+
+def fold128_64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """64-bit join key (as int64 bits) of a 126-bit canonical key (hi, lo):
+    bit-identical to phi_tpu.sketch.encode.fold128_64_np and to the native
+    read spectrum's keys for k > 31."""
+    return _mix64((hi * _GOLD) ^ _mix64(lo))
+
+
+# -------------------------------------------------- the kernels' twins
+
+def _check_rows(name, codes, nd, nvalid, left, node_off, k, w, C,
+                k_range) -> None:
+    if not k_range[0] <= k <= k_range[1]:
+        raise ValueError(f"{name} needs {k_range[0]} <= k <= {k_range[1]}, "
+                         f"got k={k}")
     if w < 1 or k + w - 2 > HALO_PAD:
-        raise ValueError(f"rows3 needs k + w - 2 <= {HALO_PAD}, got k={k} "
+        raise ValueError(f"{name} needs k + w - 2 <= {HALO_PAD}, got k={k} "
                          f"w={w}")
-    if not 1 <= C <= BLK:
-        raise ValueError(f"rows3 needs 1 <= C <= {BLK}, got C={C}")
+    if C is not None and not 1 <= C <= BLK:
+        raise ValueError(f"{name} needs 1 <= C <= {BLK}, got C={C}")
     if codes.dim() != 2 or node_off.dim() != 2:
         raise ValueError("codes [R, L] and node_off [R, SB] expected")
     R, L = codes.shape
@@ -161,35 +240,63 @@ def _check_rows3(codes, nd, nvalid, left, node_off, k, w, C) -> None:
             "nvalid": (nvalid, torch.int32, (R,)),
             "left": (left, torch.int32, (R,)),
             "node_off": (node_off, torch.int32, (R, SB))}
-    for name, (t, dt, shape) in want.items():
+    for arg, (t, dt, shape) in want.items():
         if t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(f"rows3 {name}: want {dt} {shape}, got "
+            raise ValueError(f"{name} {arg}: want {dt} {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
         if t.device != codes.device:
-            raise ValueError(f"rows3 {name} on {t.device}, codes on "
+            raise ValueError(f"{name} {arg} on {t.device}, codes on "
                              f"{codes.device}")
         if not t.is_contiguous():
-            raise ValueError(f"rows3 {name} is not contiguous")
+            raise ValueError(f"{name} {arg} is not contiguous")
 
 
-def _wmin_step(key, pos, s):
-    """Pairwise minimum of windows i and i + s, ties to the right one."""
-    a, b = key[:, :-s], key[:, s:]
-    take_b = b <= a
-    return torch.where(take_b, b, a), torch.where(take_b, pos[:, s:],
-                                                  pos[:, :-s])
+def _canonical(x: torch.Tensor, k: int, nk: int, wide: bool):
+    """Canonical k-mer keys at the nk lanes of x, as key columns that
+    compare lexicographically with signed int64 order: [key] for k <= 31,
+    [hi, lo ^ _SIGN] for the 126-bit key."""
+    if not wide:
+        fwd = torch.zeros((x.shape[0], nk), dtype=torch.int64,
+                          device=x.device)
+        rc = torch.zeros_like(fwd)
+        for j in range(k):
+            c = x[:, j:j + nk]
+            fwd = (fwd << 2) | c
+            rc |= (3 - c) << (2 * j)
+        return [torch.minimum(fwd, rc)]
+    fh, fl, rh, rl = (torch.zeros((x.shape[0], nk), dtype=torch.int64,
+                                  device=x.device) for _ in range(4))
+    for j in range(k):
+        c = x[:, j:j + nk]
+        if j < k - 32:           # forward: bases 0..k-33 fill the hi word
+            fh = (fh << 2) | c
+        else:
+            fl = (fl << 2) | c
+        if j < 32:               # reverse complement: base j at bit 2j
+            rl |= (3 - c) << (2 * j)
+        else:
+            rh |= (3 - c) << (2 * j - 64)
+    fl, rl = fl ^ _SIGN, rl ^ _SIGN
+    f_le = (fh < rh) | ((fh == rh) & (fl <= rl))
+    return [torch.where(f_le, fh, rh), torch.where(f_le, fl, rl)]
 
 
-def sketch_rows3_torch(codes, nd, nvalid, left, node_off, k: int, w: int,
-                       C: int):
-    """Plain torch twin of the rows3 kernel (same inputs and outputs).
+def _wmin_step(keys, pos, s):
+    """Pairwise minimum of windows i and i + s over lexicographic key
+    columns, ties to the right one."""
+    a = [c[:, :-s] for c in keys]
+    b = [c[:, s:] for c in keys]
+    take_b = b[-1] <= a[-1]
+    for ai, bi in zip(a[-2::-1], b[-2::-1]):
+        take_b = (bi < ai) | ((bi == ai) & take_b)
+    return ([torch.where(take_b, bi, ai) for ai, bi in zip(a, b)],
+            torch.where(take_b, pos[:, s:], pos[:, :-s]))
 
-    codes, nd: uint8 [R, (SB+1)*BLK]; nvalid, left: int32 [R];
-    node_off: int32 [R, SB]. Returns (key int64 [R, SB*C],
-    se int64 [R, SB*C], cnt int32 [R, SB]): per block, the emitted
-    minimizers left-compacted into C slots (dead past the count) and the
-    exact emitted count."""
-    _check_rows3(codes, nd, nvalid, left, node_off, k, w, C)
+
+def _lane_minimizers(codes, nd, nvalid, left, node_off, k: int, w: int,
+                     wide: bool):
+    """Every window lane of the rows: (selected key columns as _canonical
+    gives them, packed interval se, emit, valid), each [R, SB*BLK]."""
     R = codes.shape[0]
     SB = node_off.shape[1]
     n_out = SB * BLK
@@ -198,27 +305,24 @@ def sketch_rows3_torch(codes, nd, nvalid, left, node_off, k: int, w: int,
     # index i holds lane i - 1; lane -1 is the left base (0 when none)
     x = torch.cat([left.clamp(min=0).to(i64)[:, None], codes.to(i64)], 1)
     nk = n_out + w
-    fwd = torch.zeros((R, nk), dtype=i64, device=dev)
-    rc = torch.zeros_like(fwd)
-    for j in range(k):
-        c = x[:, j:j + nk]
-        fwd = (fwd << 2) | c
-        rc |= (3 - c) << (2 * j)
-    key = torch.minimum(fwd, rc)
+    keys = _canonical(x, k, nk, wide)
     pos = torch.arange(nk, dtype=i64, device=dev).expand(R, nk)
     sdl = 1
     while sdl * 2 <= w:
-        key, pos = _wmin_step(key, pos, sdl)
+        keys, pos = _wmin_step(keys, pos, sdl)
         sdl *= 2
     if w > sdl:
-        key, pos = _wmin_step(key, pos, w - sdl)
+        keys, pos = _wmin_step(keys, pos, w - sdl)
     # windows at lanes -1 .. n_out-1; q = lane of the selected k-mer
-    cur = key[:, 1:]
+    cur = [c[:, 1:] for c in keys]
+    differs = torch.zeros((R, n_out), dtype=torch.bool, device=dev)
+    for c in keys:
+        differs |= c[:, 1:] != c[:, :-1]
     q = pos[:, 1:] - 1
     lanes = torch.arange(n_out, dtype=i64, device=dev)
     valid = lanes[None, :] < nvalid.long()[:, None]
     prev_valid = torch.cat([(left >= 0)[:, None], valid[:, :-1]], 1)
-    emit = valid & ((cur != key[:, :-1]) | ~prev_valid)
+    emit = valid & (differs | ~prev_valid)
 
     # walk-position interval of the selected k-mer, counted from its
     # window's block offset
@@ -230,19 +334,73 @@ def sketch_rows3_torch(codes, nd, nvalid, left, node_off, k: int, w: int,
     s = base + scan.gather(1, q)
     e = base + scan.gather(1, q + (k - 1))
     se = ((s << 6) & UMAX32) | (e - s).clamp(max=63)
+    return cur, se, emit, valid
 
+
+def _compact(emit, cols, SB: int, C: int):
+    """Per block, the emitted lanes of each (values, fill) column
+    left-compacted into C slots [R, SB*C], plus the exact counts [R, SB]."""
+    R = emit.shape[0]
     em = emit.reshape(R, SB, BLK)
-    rank = torch.cumsum(em.to(i64), 2) - 1
-    cnt = em.sum(2, dtype=torch.int32)
+    rank = torch.cumsum(em.long(), 2) - 1
     dst = torch.where(em & (rank < C), rank, C)
+    out = []
+    for vals, fill in cols:
+        o = torch.full((R, SB, C + 1), fill, dtype=torch.int64,
+                       device=emit.device)
+        o.scatter_(2, dst, vals.reshape(R, SB, BLK))
+        out.append(o[:, :, :C].reshape(R, SB * C))
+    return out, em.sum(2, dtype=torch.int32)
 
-    def compact(vals, fill):
-        out = torch.full((R, SB, C + 1), fill, dtype=i64, device=dev)
-        out.scatter_(2, dst, vals.reshape(R, SB, BLK))
-        return out[:, :, :C].reshape(R, SB * C)
 
-    return compact(cur, DEAD_KEY), compact(se, UMAX32), cnt
+def sketch_rows3_torch(codes, nd, nvalid, left, node_off, k: int, w: int,
+                       C: int):
+    """Plain torch twin of the rows3 kernel (same inputs and outputs).
 
+    codes, nd: uint8 [R, (SB+1)*BLK]; nvalid, left: int32 [R];
+    node_off: int32 [R, SB]. Returns (key int64 [R, SB*C],
+    se int64 [R, SB*C], cnt int32 [R, SB]): per block, the emitted
+    minimizers left-compacted into C slots (dead past the count) and the
+    exact emitted count."""
+    _check_rows("rows3", codes, nd, nvalid, left, node_off, k, w, C,
+                (1, NARROW_MAX_K))
+    (key,), se, emit, _ = _lane_minimizers(codes, nd, nvalid, left,
+                                           node_off, k, w, False)
+    (key, se), cnt = _compact(emit, [(key, DEAD_KEY), (se, UMAX32)],
+                              node_off.shape[1], C)
+    return key, se, cnt
+
+
+def sketch_rows3w_torch(codes, nd, nvalid, left, node_off, k: int, w: int,
+                        C: int):
+    """Plain torch twin of the rows3w kernel: rows3 for 31 < k <= 63.
+    Returns (hi int64 [R, SB*C], lo int64 [R, SB*C], se int64 [R, SB*C],
+    cnt int32 [R, SB]); (hi, lo) is the 126-bit canonical key, (-1, -1) on
+    dead slots."""
+    _check_rows("rows3w", codes, nd, nvalid, left, node_off, k, w, C,
+                (NARROW_MAX_K + 1, WIDE_MAX_K))
+    (hi, lo), se, emit, _ = _lane_minimizers(codes, nd, nvalid, left,
+                                             node_off, k, w, True)
+    (hi, lo, se), cnt = _compact(
+        emit, [(hi, DEAD_KEY), (lo ^ _SIGN, DEAD_KEY), (se, UMAX32)],
+        node_off.shape[1], C)
+    return hi, lo, se, cnt
+
+
+def sketch_rows2_torch(codes, nd, nvalid, left, node_off, k: int, w: int):
+    """Plain torch twin of the rows2 kernel: every window lane, no
+    compaction. Returns (key int64 [R, SB*BLK], se int64 [R, SB*BLK],
+    emit bool [R, SB*BLK]); key and se are dead (-1, UMAX32) on lanes past
+    nvalid."""
+    _check_rows("rows2", codes, nd, nvalid, left, node_off, k, w, None,
+                (1, NARROW_MAX_K))
+    (key,), se, emit, valid = _lane_minimizers(codes, nd, nvalid, left,
+                                               node_off, k, w, False)
+    return (torch.where(valid, key, DEAD_KEY),
+            torch.where(valid, se, UMAX32), emit)
+
+
+# ------------------------------------------------ the kernels on the card
 
 _lib_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -255,12 +413,12 @@ def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     if os.path.exists(os.path.join(home, "bin", "nvcc")):
         return os.path.join(home, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the rows3 CUDA kernel is built from "
-                       "csrc/rows3.cu on first use")
+    raise RuntimeError("nvcc not found: the rows CUDA kernels are built from "
+                       "csrc/rows.cu on first use")
 
 
-def build_rows3() -> ctypes.CDLL:
-    """Build (once per source version) and load the rows3 CUDA library.
+def build_rows() -> ctypes.CDLL:
+    """Build (once per source version) and load the rows kernel library.
     Raises if nvcc fails; the output goes to phi_tpu_torch/_build/."""
     global _lib
     with _lib_lock:
@@ -270,7 +428,7 @@ def build_rows3() -> ctypes.CDLL:
             src = f.read()
         tag = hashlib.sha1(src + " ".join(_NVCC_FLAGS).encode()) \
             .hexdigest()[:12]
-        so = os.path.join(_BUILD_DIR, f"librows3-{tag}.so")
+        so = os.path.join(_BUILD_DIR, f"librows-{tag}.so")
         if not os.path.exists(so):
             os.makedirs(_BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
@@ -281,52 +439,112 @@ def build_rows3() -> ctypes.CDLL:
                                    f"{' '.join(cmd)}\n{proc.stderr}")
             os.replace(tmp, so)
         lib = ctypes.CDLL(so)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.phi_rows3_launch.argtypes = [vp, vp, vp, vp, vp,
-                                         ctypes.c_longlong, ci, ci, ci, ci,
-                                         ci, vp, vp, vp, vp]
-        lib.phi_rows3_launch.restype = ci
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        inputs = [vp, vp, vp, vp, vp, cl, ci, ci, ci, ci]
+        lib.phi_rows3_launch.argtypes = inputs + [ci, vp, vp, vp, vp]
+        lib.phi_rows3w_launch.argtypes = inputs + [ci, vp, vp, vp, vp, vp]
+        lib.phi_rows2_launch.argtypes = inputs + [vp, vp, vp, vp]
+        for fn in (lib.phi_rows3_launch, lib.phi_rows3w_launch,
+                   lib.phi_rows2_launch):
+            fn.restype = ci
         _lib = lib
         return lib
+
+
+def _launch(name: str, codes, nd, nvalid, left, node_off, k: int, w: int,
+            extra: tuple, outs: tuple) -> None:
+    """Launch the kernel `phi_{name}_launch` on the current stream of
+    codes' device; raises if the launch fails."""
+    fn = getattr(build_rows(), f"phi_{name}_launch")
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream(codes.device).cuda_stream
+        rc = fn(codes.data_ptr(), nd.data_ptr(), nvalid.data_ptr(),
+                left.data_ptr(), node_off.data_ptr(), codes.shape[1],
+                codes.shape[0], node_off.shape[1], k, w, *extra,
+                *(t.data_ptr() for t in outs), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} CUDA launch failed: cudaError {rc}")
+
+
+def _on_card(name: str, codes) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors
+    (run the twin); any other device raises."""
+    if codes.device.type == "cpu":
+        return False
+    if codes.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {codes.device}")
+    return True
 
 
 def sketch_rows3(codes, nd, nvalid, left, node_off, k: int, w: int, C: int):
     """rows3 sketch: the CUDA kernel for CUDA tensors, the torch twin for
     CPU tensors (see sketch_rows3_torch for the contract). A CUDA launch
     that fails raises; `sketch_rows3.launches` counts kernel launches."""
-    if codes.device.type == "cpu":
+    if not _on_card("rows3", codes):
         return sketch_rows3_torch(codes, nd, nvalid, left, node_off, k, w, C)
-    if codes.device.type != "cuda":
-        raise ValueError(f"rows3 runs on cuda or cpu, not {codes.device}")
-    _check_rows3(codes, nd, nvalid, left, node_off, k, w, C)
-    lib = build_rows3()
-    R = codes.shape[0]
-    SB = node_off.shape[1]
+    _check_rows("rows3", codes, nd, nvalid, left, node_off, k, w, C,
+                (1, NARROW_MAX_K))
+    R, SB = node_off.shape
     key = torch.empty((R, SB * C), dtype=torch.int64, device=codes.device)
     se = torch.empty_like(key)
     cnt = torch.empty((R, SB), dtype=torch.int32, device=codes.device)
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream(codes.device).cuda_stream
-        rc = lib.phi_rows3_launch(
-            codes.data_ptr(), nd.data_ptr(), nvalid.data_ptr(),
-            left.data_ptr(), node_off.data_ptr(), codes.shape[1], R, SB, k,
-            w, C, key.data_ptr(), se.data_ptr(), cnt.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"rows3 CUDA launch failed: cudaError {rc}")
+    _launch("rows3", codes, nd, nvalid, left, node_off, k, w, (C,),
+            (key, se, cnt))
     sketch_rows3.launches += 1
     return key, se, cnt
 
 
+def sketch_rows3w(codes, nd, nvalid, left, node_off, k: int, w: int,
+                  C: int):
+    """rows3w sketch (31 < k <= 63): the CUDA kernel for CUDA tensors, the
+    torch twin for CPU tensors (see sketch_rows3w_torch);
+    `sketch_rows3w.launches` counts kernel launches."""
+    if not _on_card("rows3w", codes):
+        return sketch_rows3w_torch(codes, nd, nvalid, left, node_off, k, w,
+                                   C)
+    _check_rows("rows3w", codes, nd, nvalid, left, node_off, k, w, C,
+                (NARROW_MAX_K + 1, WIDE_MAX_K))
+    R, SB = node_off.shape
+    hi = torch.empty((R, SB * C), dtype=torch.int64, device=codes.device)
+    lo = torch.empty_like(hi)
+    se = torch.empty_like(hi)
+    cnt = torch.empty((R, SB), dtype=torch.int32, device=codes.device)
+    _launch("rows3w", codes, nd, nvalid, left, node_off, k, w, (C,),
+            (hi, lo, se, cnt))
+    sketch_rows3w.launches += 1
+    return hi, lo, se, cnt
+
+
+def sketch_rows2(codes, nd, nvalid, left, node_off, k: int, w: int):
+    """rows2 sketch (full lanes): the CUDA kernel for CUDA tensors, the
+    torch twin for CPU tensors (see sketch_rows2_torch);
+    `sketch_rows2.launches` counts kernel launches."""
+    if not _on_card("rows2", codes):
+        return sketch_rows2_torch(codes, nd, nvalid, left, node_off, k, w)
+    _check_rows("rows2", codes, nd, nvalid, left, node_off, k, w, None,
+                (1, NARROW_MAX_K))
+    R, SB = node_off.shape
+    key = torch.empty((R, SB * BLK), dtype=torch.int64, device=codes.device)
+    se = torch.empty_like(key)
+    emit = torch.empty((R, SB * BLK), dtype=torch.bool, device=codes.device)
+    _launch("rows2", codes, nd, nvalid, left, node_off, k, w, (),
+            (key, se, emit))
+    sketch_rows2.launches += 1
+    return key, se, emit
+
+
 sketch_rows3.launches = 0
+sketch_rows3w.launches = 0
+sketch_rows2.launches = 0
 
 
-# ------------------------------------------------------------ the join
+# ------------------------------------------------------------ the joins
 
-def flatten_hits(n_min, found, slot, se, hap_of_row, cap_total: int):
-    """Row-major flattening of the hit columns (packed interval, slot, hap)
-    into [cap_total] arrays; hits past cap_total are dropped (n_hit stays
-    exact). Dead lanes can match empty cuckoo slots, so hits are masked to
-    live intervals."""
+def flatten_hits(n_min, found, idx, se, hap_of_row, cap_total: int):
+    """Row-major flattening of the hit columns (packed interval, idx, hap)
+    into [cap_total] arrays; idx is a table slot or a spectrum id. Hits past
+    cap_total are dropped (n_hit stays exact). Dead lanes can match empty
+    cuckoo slots, so hits are masked to live intervals."""
     hit = found & (se != UMAX32)
     n_hit = hit.sum(1)
     base = torch.cumsum(n_hit, 0) - n_hit
@@ -341,7 +559,27 @@ def flatten_hits(n_min, found, slot, se, hap_of_row, cap_total: int):
         return out[:cap_total]
 
     hap_b = hap_of_row.long()[:, None].expand(se.shape)
-    return n_min, n_hit, flat(se, UMAX32), flat(slot, -1), flat(hap_b, -1)
+    return n_min, n_hit, flat(se, UMAX32), flat(idx, -1), flat(hap_b, -1)
+
+
+def _kernel_inputs(words, nd, base_node, n_blocks: int):
+    """(codes, node_off) of a packed batch with node-start plane nd."""
+    codes = unpack_2bit(words, (n_blocks + 1) * BLK)
+    return codes, block_node_offsets(nd, base_node, n_blocks)
+
+
+def _join_compacted(key, se, cnt, hap_of_row, tkey, tid, seed: int,
+                    cap_total: int):
+    """The v3 joins' tail: cuckoo slot probe of the compacted keys, hit
+    flatten, slot -> spectrum id. Returns (n_min, n_hit, f_se, f_id, f_hap,
+    cnt_max)."""
+    from phi_tpu_torch.ops.search import probe_cuckoo_slot
+    n_min = cnt.sum(1, dtype=torch.int64)
+    found, slot = probe_cuckoo_slot(tkey, seed, key)
+    nm, nh, f_se, f_slot, f_hap = flatten_hits(n_min, found, slot, se,
+                                               hap_of_row, cap_total)
+    f_id = torch.where(f_slot >= 0, tid[f_slot.clamp(min=0)], -1)
+    return nm, nh, f_se, f_id, f_hap, cnt.amax(1)
 
 
 def join_rows3(words, starts, nvalid, left, base_node, hap_of_row,
@@ -351,16 +589,76 @@ def join_rows3(words, starts, nvalid, left, base_node, hap_of_row,
     _pallas_join_rows3_ck): returns (n_min, n_hit, f_se, f_id, f_hap,
     cnt_max), with n_min, n_hit and cnt_max per row and the flat hit
     columns [cap_total] (-1 / UMAX32 padded)."""
-    from phi_tpu_torch.ops.search import probe_cuckoo_slot
-    row_lanes = (n_blocks + 1) * BLK
-    codes = unpack_2bit(words, row_lanes)
-    nd = delta_plane(starts, row_lanes)
-    node_off = block_node_offsets(nd, base_node, n_blocks)
+    nd = delta_plane(starts, (n_blocks + 1) * BLK)
+    codes, node_off = _kernel_inputs(words, nd, base_node, n_blocks)
     key, se, cnt = sketch_rows3(codes, nd, nvalid, left, node_off, k, w, C)
-    n_min = cnt.sum(1, dtype=torch.int64)
-    cnt_max = cnt.amax(1)
+    return _join_compacted(key, se, cnt, hap_of_row, tkey, tid, seed,
+                           cap_total)
+
+
+def join_rows3w(words, starts, nvalid, left, base_node, hap_of_row,
+                tkey, tid, seed: int, k: int, w: int, n_blocks: int, C: int,
+                cap_total: int):
+    """join_rows3 for 31 < k <= 63 (the port of _pallas_join_rows3w_ck):
+    the rows3w keys fold to the 64-bit join key of the read spectrum before
+    the probe. The fold of a dead slot is a fixed value that can equal a
+    table key; flatten_hits masks dead slots by their interval."""
+    nd = delta_plane(starts, (n_blocks + 1) * BLK)
+    codes, node_off = _kernel_inputs(words, nd, base_node, n_blocks)
+    hi, lo, se, cnt = sketch_rows3w(codes, nd, nvalid, left, node_off, k, w,
+                                    C)
+    return _join_compacted(fold128_64(hi, lo), se, cnt, hap_of_row, tkey,
+                           tid, seed, cap_total)
+
+
+def compact_emitted(emit, key, se, emitcap: int):
+    """Each row's emitted lanes, in lane order, into [R, emitcap] columns
+    (key, se), dead-padded (-1, UMAX32); lanes past emitcap are dropped."""
+    order = torch.cumsum(emit.long(), 1) - 1
+    dst = torch.where(emit, order.clamp(max=emitcap), emitcap)
+
+    def gather(vals, fill):
+        out = torch.full((emit.shape[0], emitcap + 1), fill,
+                         dtype=torch.int64, device=emit.device)
+        return out.scatter_(1, dst, vals)[:, :emitcap]
+
+    return gather(key, DEAD_KEY), gather(se, UMAX32)
+
+
+def _join_lanes(words, deltas, nvalid, left, base_node, k: int, w: int,
+                n_blocks: int, emitcap: int):
+    """The v2 joins' head: rows2 over the dense node plane, then the
+    emitted-lane compaction. Returns (n_min, key, se), the last two
+    [R, emitcap]."""
+    codes, node_off = _kernel_inputs(words, deltas, base_node, n_blocks)
+    key, se, emit = sketch_rows2(codes, deltas, nvalid, left, node_off, k, w)
+    return (emit.sum(1),) + compact_emitted(emit, key, se, emitcap)
+
+
+def join_rows2(words, deltas, nvalid, left, base_node, hap_of_row, table,
+               k: int, w: int, n_blocks: int, emitcap: int, cap_total: int):
+    """One v2 batch with the mixed-bucket probe (the port of
+    _pallas_join_rows2): deltas is the dense node plane (pack_row_deltas),
+    table the (m, lo, perm, off, rounds, bits) of
+    ops.search.mixed_tensors. Returns (n_min, n_hit, f_se, f_id, f_hap)."""
+    from phi_tpu_torch.ops.search import pair_isin_mixed
+    n_min, key, se = _join_lanes(words, deltas, nvalid, left, base_node, k,
+                                 w, n_blocks, emitcap)
+    m, lo, perm, off, rounds, bits = table
+    found, ids = pair_isin_mixed(m, lo, perm, off, key, rounds, bits)
+    return flatten_hits(n_min, found, ids, se, hap_of_row, cap_total)
+
+
+def join_rows2_ck(words, deltas, nvalid, left, base_node, hap_of_row, tkey,
+                  tid, seed: int, k: int, w: int, n_blocks: int,
+                  emitcap: int, cap_total: int):
+    """One v2 batch with the id-returning cuckoo probe (the port of
+    _pallas_join_rows2_ck, taken for a dense node chop). Returns (n_min,
+    n_hit, f_se, f_id, f_hap)."""
+    from phi_tpu_torch.ops.search import probe_cuckoo_slot
+    n_min, key, se = _join_lanes(words, deltas, nvalid, left, base_node, k,
+                                 w, n_blocks, emitcap)
     found, slot = probe_cuckoo_slot(tkey, seed, key)
-    nm, nh, f_se, f_slot, f_hap = flatten_hits(n_min, found, slot, se,
-                                               hap_of_row, cap_total)
-    f_id = torch.where(f_slot >= 0, tid[f_slot.clamp(min=0)], -1)
-    return nm, nh, f_se, f_id, f_hap, cnt_max
+    ids = torch.where(found, tid[slot.clamp(min=0)], -1)
+    return flatten_hits(n_min, found & (ids >= 0), ids, se, hap_of_row,
+                        cap_total)

@@ -40,11 +40,14 @@ def cuckoo_tensors(ck, device):
             int(seed))
 
 
-def batch_tensors(words, starts, nvalid, left, base_node, hap, device):
+def batch_tensors(words, nodes, nvalid, left, base_node, hap, device):
     """One packed join batch: words (uint32 [R, W], passed as its int32
-    view), starts int32 [R, S_cap], and the int32 per-row columns."""
+    view), the node starts (int32 [R, S_cap] offsets for the v3 routes, the
+    uint8 [R, row_lanes] dense plane for v2) in their own dtype, and the
+    int32 per-row columns."""
     words = np.ascontiguousarray(words, np.uint32).view(np.int32)
-    return (_t(words, torch.int32, device), _t(starts, torch.int32, device),
+    nodes = torch.from_numpy(np.ascontiguousarray(nodes)).to(device)
+    return (_t(words, torch.int32, device), nodes,
             _t(nvalid, torch.int32, device), _t(left, torch.int32, device),
             _t(base_node, torch.int32, device), _t(hap, torch.int32, device))
 

@@ -1,10 +1,12 @@
 """Where the device time goes in one warm run of the pipeline on the card.
 
-    python -m phi_tpu_torch.trace
+    python -m phi_tpu_torch.trace [-k 35]
 
 Builds (or reuses) the synthetic instance of the reference's configuration
-(49 haplotypes x 5 Mbp, 1x reads, `-k 31 -w 25 -R 100`), runs the pipeline on cuda once cold and once warm,
-then once more under torch.profiler, and prints one JSON object:
+(49 haplotypes x 5 Mbp, 1x reads, `-k 31 -w 25 -R 100`; `-k` sets another
+k, such as 35 for the wide rows3w route), runs the pipeline on cuda once
+cold and once warm, then once more under torch.profiler, and prints one
+JSON object:
   - `wall_s`: the warm run's `timings["total"]`, unprofiled;
   - `profiled_wall_s`: the same for the profiled run;
   - `busy_s`: the length of the union of the intervals of every kernel,
@@ -19,6 +21,7 @@ Exits 1 without a CUDA device.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -72,7 +75,10 @@ def summarize(events, wall_s: float, profiled_wall_s: float) -> dict:
                         for n, (ms, c) in top]}
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(prog="python -m phi_tpu_torch.trace")
+    p.add_argument("-k", type=int, default=31, help="k-mer size [31]")
+    k = p.parse_args(argv).k
     if not torch.cuda.is_available():
         print("[trace] no CUDA device", file=sys.stderr)
         return 1
@@ -86,7 +92,7 @@ def main() -> int:
     out = os.path.join(os.path.dirname(paths["gfa"]), "trace.fa")
     opt = cli.options_from_args(cli.build_parser().parse_args(
         ["-g", paths["gfa"], "-r", paths["reads"], "-o", out,
-         "-k", "31", "-w", "25", "-R", "100"]))
+         "-k", str(k), "-w", "25", "-R", "100"]))
     dev = torch.device("cuda")
 
     def run():
@@ -107,7 +113,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     res["card"] = smi.stdout.strip().splitlines()[0] if smi.stdout else ""
-    res["instance"] = {"haps": HAPS, "length": LENGTH, "coverage": COVERAGE}
+    res["instance"] = {"haps": HAPS, "length": LENGTH, "coverage": COVERAGE,
+                       "k": k}
     print(json.dumps(res), flush=True)
     return 0
 

@@ -1,6 +1,7 @@
-"""Card tests of the port: the rows3 CUDA kernel against its plain twin on
-the same CUDA tensors. They skip without a CUDA device. This file imports
-no jax, so it also runs where jax is absent:
+"""Card tests of the port: the rows3, rows3w and rows2 CUDA kernels against
+their plain twins on the same CUDA tensors, at the main path's shape. They
+skip without a CUDA device. This file imports no jax, so it also runs where
+jax is absent:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 """
@@ -42,5 +43,35 @@ def test_rows3_kernel_matches_twin_on_card(k, w, C):
     got = tk.sketch_rows3(*args, k, w, C)
     torch.cuda.synchronize()
     assert tk.sketch_rows3.launches == before + 1
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,w", [(35, 25), (63, 11)])
+def test_rows3w_kernel_matches_twin_on_card(k, w):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    C = tk.block_cap(w)
+    args = tuple(a.cuda() for a in _inputs(k, tk.SUPER_BLOCKS))
+    want = tk.sketch_rows3w_torch(*args, k, w, C)
+    before = tk.sketch_rows3w.launches
+    got = tk.sketch_rows3w(*args, k, w, C)
+    torch.cuda.synchronize()
+    assert tk.sketch_rows3w.launches == before + 1
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_rows2_kernel_matches_twin_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = tuple(a.cuda() for a in _inputs(2, tk.SUPER_BLOCKS))
+    want = tk.sketch_rows2_torch(*args, 31, 25)
+    before = tk.sketch_rows2.launches
+    got = tk.sketch_rows2(*args, 31, 25)
+    torch.cuda.synchronize()
+    assert tk.sketch_rows2.launches == before + 1
     for a, b in zip(want, got):
         assert torch.equal(a, b)

@@ -228,13 +228,15 @@ def test_cli_matches_jax_cli(tmp_path):
 
 
 def test_port_run_loads_no_jax(tmp_path):
-    """conftest imports jax into this process, so the run is a child."""
+    """conftest imports jax into this process, so the runs (the default k
+    and the wide k = 35) are a child."""
     gfa_path, reads_path = _mosaic(tmp_path)
     code = ("import sys\n"
             "import phi_tpu_torch.eval, phi_tpu_torch.trace\n"
             "from phi_tpu_torch.cli import main\n"
-            f"rc = main(['-g', {gfa_path!r}, '-r', {reads_path!r}, '-o', "
-            f"{str(tmp_path / 'out.fa')!r}, '--device', 'cpu'])\n"
+            f"args = ['-g', {gfa_path!r}, '-r', {reads_path!r}, '-o', "
+            f"{str(tmp_path / 'out.fa')!r}, '--device', 'cpu']\n"
+            "rc = main(args) + main(args + ['-k', '35'])\n"
             "print('rc', rc, 'jax_loaded', 'jax' in sys.modules)\n")
     res = _run(["-c", code])
     assert res.returncode == 0, res.stderr[-2000:]
