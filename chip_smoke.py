@@ -6,12 +6,14 @@
 Phases, in order; any failure exits non-zero:
   0. the native host library, then the card (nvidia-smi name and power
      limit) and the torch/CUDA versions; no CUDA device -> exit 1;
-  1. build the rows kernel family (rows3, rows3w, rows2) from
+  1. build the rows kernel family (rows3, rows3w, rows2, rows, seq) from
      phi_tpu_torch/csrc/rows.cu (into phi_tpu_torch/_build/);
   2. each kernel against its plain torch twin on the card at the production
      shape (R=8, SB=256): rows3 at k=31 w=25 C=2048, plus (k, w) = (21, 11)
-     and a cnt > C case; rows3w at k=35 w=25 and k=63 w=11; rows2 at k=31
-     w=25: outputs array-equal; medians of 10 timed runs each;
+     and a cnt > C case; rows3w at k=35 w=25 and k=63 w=11; rows2 and rows
+     at k=31 w=25 (rows also at k=21 w=11); seq at k=31 w=25 on one
+     5,000,000-base sequence with N runs: outputs array-equal; medians of
+     10 timed runs each, and each kernel's bound (bound_ms below);
   3. the whole path on a small instance (4 haplotypes x 200 kbp) on cuda
      and on cpu: byte-identical FASTA, same report, bound and objective;
   4. the main path at size (49 haplotypes x 5 Mbp, 30 bp nodes, 1x reads,
@@ -22,8 +24,19 @@ Phases, in order; any failure exits non-zero:
   6. the v2 mixed route at chromosome length (4 haplotypes x 200 Mbp, 1x
      reads, -k 31 -w 25 -R 100): a read spectrum above the cuckoo table's
      8,000,000 keys, so rows2 runs and rows3 does not; certified; rows2
-     against its twin on the instance's first two packed batches.
-Phases 4-6 set every kernel's launch count to 0 just before each run and
+     against its twin on the instance's first two packed batches;
+  7. the checkpoint on the 49 x 5 Mbp instance at -k 31 -w 25: (a) a
+     --save-index run, through the v1 join (rows launches, rows3 does not),
+     whose FASTA equals phase 4's warm FASTA; (b) a --load-index run with
+     the same flags, the same FASTA and no rows* launch; (c) a --load-index
+     re-solve at -R 50 against a default run at -R 50, the same FASTA;
+     every run certified; rows against its twin on the first two v1
+     batches;
+  8. the single-sequence kernel at size: seq against its twin on
+     haplotype 0 of that instance with N runs written in (one across a
+     block boundary); join_sequence on the N-free haplotype 0 against
+     join_many, the same (n_min, positions, ids).
+Phases 4-8 set every kernel's launch count to 0 just before each run and
 read them just after. The second-to-last line is the kernels JSON, the
 last the device JSON. Instances are generated from a seed into
 phi_tpu_torch/_build/scale/.
@@ -120,6 +133,9 @@ def compare(name: str, args, *params) -> int:
 
 
 def run_port(paths, out, argv, device):
+    """One run through the CLI's options; -r is passed on --load-index runs
+    too (the reads are not read then), so the FASTA record name is the
+    same as the other runs'."""
     from phi_tpu_torch import cli
     from phi_tpu_torch.pipeline import run_pipeline
     opt = cli.options_from_args(cli.build_parser().parse_args(
@@ -127,7 +143,41 @@ def run_port(paths, out, argv, device):
     return run_pipeline(paths["gfa"], paths["reads"], out, opt, device=device)
 
 
-KERNELS = ("rows3", "rows3w", "rows2")
+KERNELS = ("rows3", "rows3w", "rows2", "rows", "seq")
+HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+# INT32 issue rate: 132 SMs x 64 INT32 lanes per SM (Hopper architecture
+# white paper) x 1.98 GHz boost (the clock behind the data sheet's 67
+# TFLOP/s float32)
+INT32_OPS_S = 132 * 64 * 1.98e9
+
+
+def int_ops_per_window(name: str, w: int) -> int:
+    """INT32 operations the minimizer algorithm needs for one valid window,
+    counting a 64-bit operation as two: the rolling canonical key (forward
+    and reverse-complement shift-or, the masks and the min: 9 64-bit ops),
+    the window minimum by log-doubling (floor(log2 w) + 1 steps of a key
+    compare, a key select and a position select: 5), the dedup test (4);
+    the 126-bit key of rows3w doubles the key and compare work; the
+    interval variants add the node prefix and the packed interval (4)."""
+    steps = w.bit_length()
+    wide = name == "rows3w"
+    ops = (36 if wide else 18) + steps * (9 if wide else 5) + 4
+    return ops + (4 if name in ("rows3", "rows3w", "rows2") else 0)
+
+
+def bound_ms(name: str, ins, outs, w: int) -> tuple[float, str]:
+    """The least time the card could take for one call: the larger of the
+    bytes it must move (each input read once, each output written once)
+    over the memory rate and the INT32 operations of the valid windows
+    (nvalid, the second input of the position variants and the third of
+    the interval variants) over the INT32 rate."""
+    import torch
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*ins, *outs) if isinstance(t, torch.Tensor))
+    nvalid = ins[1] if name in ("rows", "seq") else ins[2]
+    ops = int(nvalid.long().sum()) * int_ops_per_window(name, w)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / INT32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def run_counted(paths, out, argv, dev):
@@ -157,11 +207,16 @@ def report(label: str, r, wall: float, launches, peak: int, truth: str,
     es = edit_stats(r.sequence, truth)
     log(f"{label}: wall {wall:.3f} s; timings "
         + json.dumps({k: round(v, 4) for k, v in r.timings.items()}))
+    occ = r.anchors.device_occ
+    if occ is not None:
+        anchors = (f"{occ.n_hits} join hits, {occ.n_occ} retained "
+                   f"occurrences; anchors on {occ.dev_s.device}")
+    else:  # the hit path: tables built on the host from the join hits
+        anchors = (f"host anchor tables from the join hits, "
+                   f"{len(r.anchors.occ_hap)} retained occurrences")
     log(f"{label}: peak device memory {peak} B; launches "
         f"{json.dumps(launches)}; spectrum {r.anchors.spectrum_size} keys; "
-        f"{r.anchors.device_occ.n_hits} join hits, "
-        f"{r.anchors.device_occ.n_occ} retained occurrences; "
-        f"anchors on {r.anchors.device_occ.dev_s.device}; solver on "
+        f"{anchors}; solver on "
         f"{r.decode.solver_device}; gap {gap:.3f} (certified "
         f"{gap <= gap_tol(R)}); recombinations {r.recombination_count}; "
         f"edit distance to truth {es.edit_distance} (identity "
@@ -170,8 +225,26 @@ def report(label: str, r, wall: float, launches, peak: int, truth: str,
 
 
 def on_cuda(r) -> bool:
-    return (r.anchors.device_occ.dev_s.device.type == "cuda"
+    occ = r.anchors.device_occ
+    return ((occ is None or occ.dev_s.device.type == "cuda")
             and r.decode.solver_device.startswith("cuda"))
+
+
+def same_file(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def seq_with_n(codes, rng):
+    """A copy of codes with N runs written in: one across the first block
+    boundary, twelve more at random places."""
+    import numpy as np
+    from phi_tpu_torch.sketch import kernels as tk
+    out = np.array(codes, np.uint8)
+    out[tk.BLK - 20:tk.BLK + 15] = 4
+    for at in rng.integers(0, len(out) - 100, 12):
+        out[at:at + rng.integers(1, 60)] = 4
+    return out
 
 
 def instance_batches(r, k: int, w: int, dev, v2: bool):
@@ -197,6 +270,20 @@ def instance_batches(r, k: int, w: int, dev, v2: bool):
         nd = nodes if v2 else tk.delta_plane(nodes, row_lanes)
         yield (tk.unpack_2bit(words, row_lanes), nd, nv, left,
                tk.block_node_offsets(nd, base, sb))
+
+
+def join_batches(r, k: int, w: int, dev):
+    """The rows kernel's inputs (codes, nvalid, left) of the first two v1
+    batches of a run's graph, packed as join_many packs them."""
+    from phi_tpu_torch.sketch import kernels as tk
+    g = r.graph
+    seqs = [g.walk_seq_codes(h) for h in range(g.num_walks)]
+    row_lanes = (tk.SUPER_BLOCKS + 1) * tk.BLK
+    _, rows = tk.plan_join_rows(seqs, k, w)
+    for b in range(2):
+        batch = rows[b * tk.ROWS:(b + 1) * tk.ROWS]
+        words, nv, left = tk.pack_join_batch(seqs, batch, row_lanes, dev)
+        yield tk.unpack_2bit(words, row_lanes), nv, left
 
 
 def read_truth(paths) -> str:
@@ -240,31 +327,42 @@ def main() -> int:
     from phi_tpu_torch.sketch import kernels as tk
     t0 = time.time()
     tk.build_rows()
-    log(f"rows kernels (rows3, rows3w, rows2) built in {time.time() - t0:.3f}"
-        f" s")
+    log(f"rows kernels ({', '.join(KERNELS)}) built in "
+        f"{time.time() - t0:.3f} s")
 
     # --- phase 2: each kernel vs its twin at the production shape ---
     sb = tk.SUPER_BLOCKS
     err = dict.fromkeys(KERNELS, 0)
-    ms, plain_ms = {}, {}
+    ms, plain_ms, bound = {}, {}, {}
 
     def check(name, args, *params):
         err[name] = max(err[name], compare(name, args, *params))
 
     def timed(name, args, *params):
         check(name, args, *params)
-        ms[name] = cuda_ms(lambda: getattr(tk, f"sketch_{name}")(
-            *args, *params))
+        kern = getattr(tk, f"sketch_{name}")
+        ms[name] = cuda_ms(lambda: kern(*args, *params))
         plain_ms[name] = cuda_ms(lambda: getattr(tk, f"sketch_{name}_torch")(
             *args, *params))
-        log(f"{name} {params} R=8 SB={sb}: equal to twin; kernel "
-            f"{ms[name]:.4f} ms, twin {plain_ms[name]:.4f} ms (median of 10,"
-            f" {card})")
+        bound[name] = bound_ms(name, args, kern(*args, *params), params[1])
+        log(f"{name} {params} codes {tuple(args[0].shape)}: equal to twin; "
+            f"kernel {ms[name]:.4f} ms, twin {plain_ms[name]:.4f} ms (median "
+            f"of 10, {card}); bound {bound[name][0]:.4f} ms "
+            f"({bound[name][1]}), {bound[name][0] / ms[name]:.1%} reached")
 
     args = rows3_inputs(1, sb)
     timed("rows3", args, 31, 25, tk.block_cap(25))
     timed("rows3w", args, 35, 25, tk.block_cap(25))
     timed("rows2", args, 31, 25)
+    pos_args = (args[0], args[2], args[3])
+    timed("rows", pos_args, 31, 25)
+    check("rows", pos_args, 21, 11)
+    import numpy as np
+    rng = np.random.default_rng(8)
+    seq_args = tk._seq_tensors(
+        seq_with_n(rng.integers(0, 4, 5_000_000, dtype=np.uint8), rng),
+        31, 25, dev)
+    timed("seq", seq_args, 31, 25)
     args = rows3_inputs(2, sb)
     check("rows3", args, 21, 11, tk.block_cap(11))
     check("rows3", args, 21, 11, 256)
@@ -345,12 +443,85 @@ def main() -> int:
         check("rows2", args, 31, 25)
     log("rows2 equal to twin on the 4 x 200 Mbp instance's first 2 batches")
 
-    replaces = {"rows3": 1000, "rows3w": 1340, "rows2": 688}
+    # --- phase 7: the checkpoint on the 49 x 5 Mbp instance ---
+    from phi_tpu_torch.checkpoint import load_index
+    bdir = os.path.dirname(big["gfa"])
+    idx = os.path.join(bdir, "port_index.npz")
+    main_fa = os.path.join(bdir, "port_k31_warm.fa")
+    flags = ["-k", "31", "-w", "25", "-R", "100"]
+    phase7 = (("7a save-index", "save.fa", flags + ["--save-index", idx]),
+              ("7b load-index", "load.fa", flags + ["--load-index", idx]),
+              ("7c load-index -R 50", "load_r50.fa",
+               ["-k", "31", "-w", "25", "-R", "50", "--load-index", idx]),
+              ("7c default -R 50", "default_r50.fa",
+               ["-k", "31", "-w", "25", "-R", "50"]))
+    fa = {}
+    for label, fname, argv in phase7:
+        fa[label] = os.path.join(bdir, f"port_{fname}")
+        r, wall, n, peak = run_counted(big, fa[label], argv, dev)
+        R = float(argv[argv.index("-R") + 1])
+        if not report(f"phase {label}", r, wall, n, peak, truth, R):
+            return fail(f"phase {label}: not certified")
+        if not on_cuda(r):
+            return fail(f"phase {label}: solver tensors are not on cuda")
+        if label == "7a save-index":
+            launches["rows"] = n["rows"]
+            if n["rows"] <= 0 or n["rows3"] != 0:
+                return fail(f"--save-index launches: {json.dumps(n)}")
+            _, hits, _ = load_index(idx)
+            log(f"phase 7a: index {os.path.getsize(idx)} B, "
+                f"{sum(len(h[1]) for h in hits)} join hits, "
+                f"{sum(h[0] for h in hits)} minimizers")
+            save_run = r
+        elif label != "7c default -R 50" and any(n.values()):
+            return fail(f"{label} launched a rows kernel: {json.dumps(n)}")
+    for a, b in (("7a save-index", None), ("7b load-index", None),
+                 ("7c load-index -R 50", "7c default -R 50")):
+        if not same_file(fa[a], fa[b] if b else main_fa):
+            return fail(f"phase {a}: FASTA differs from "
+                        f"{b or 'phase 4 (warm)'}")
+    log("phase 7: save-index and load-index FASTA == phase 4 warm FASTA; "
+        "load-index -R 50 FASTA == default -R 50 FASTA")
+    for args in join_batches(save_run, 31, 25, dev):
+        check("rows", args, 31, 25)
+    log("rows equal to twin on the 49 x 5 Mbp instance's first 2 v1 batches")
+
+    # --- phase 8: the single-sequence kernel at size ---
+    spectrum, hits, _ = load_index(idx)
+    hap0 = save_run.graph.walk_seq_codes(0)
+    with_n = seq_with_n(hap0, np.random.default_rng(9))
+    for n in KERNELS:
+        getattr(tk, f"sketch_{n}").launches = 0
+    t0 = time.time()
+    s_hi, _, s_pos = tk.sketch_sequence(with_n, 31, 25, device=dev)
+    got = tk.join_sequence(hap0, 31, 25, *spectrum, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches["seq"] = tk.sketch_seq.launches
+    if launches["seq"] != 2 or tk.sketch_rows.launches:
+        return fail(f"phase 8 launches: seq {launches['seq']}, rows "
+                    f"{tk.sketch_rows.launches}")
+    want = tk.join_many([hap0], 31, 25, *spectrum, device=dev)[0]
+    if (got[0] != want[0] or not np.array_equal(got[1], want[1])
+            or not np.array_equal(got[2], want[2])
+            or not np.array_equal(got[1], hits[0][1])):
+        return fail("phase 8: join_sequence differs from join_many on "
+                    "haplotype 0")
+    check("seq", tk._seq_tensors(with_n, 31, 25, dev), 31, 25)
+    log(f"phase 8: haplotype 0 ({len(hap0)} bp): sketch_sequence with N "
+        f"runs {len(s_hi)} minimizers (positions {int(s_pos.min())}.."
+        f"{int(s_pos.max())}), join_sequence {got[0]} minimizers and "
+        f"{len(got[1])} hits == join_many; both in {wall:.3f} s; seq equal "
+        f"to twin on the N-bearing haplotype")
+
+    replaces = {"rows3": 1000, "rows3w": 1340, "rows2": 688, "rows": 237,
+                "seq": 57}
     print(json.dumps({"kernels": [{
         "name": n, "route": "cuda", "source": "phi_tpu_torch/csrc/rows.cu",
         "replaces": f"phi_tpu/sketch/kernels.py:{replaces[n]}",
         "launches": launches[n], "max_abs_err": err[n],
-        "ms": ms[n], "plain_ms": plain_ms[n]} for n in KERNELS]}),
+        "ms": ms[n], "plain_ms": plain_ms[n], "bound_ms": bound[n][0],
+        "bound_by": bound[n][1], "library_ms": None} for n in KERNELS]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -34,7 +34,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from phi_tpu.graph.pangenome import PangenomeGraph
+from phi_tpu_torch.graph.pangenome import PangenomeGraph
 from phi_tpu_torch import state
 from phi_tpu_torch.ops.search import make_cuckoo, mixed_tensors, mul32
 from phi_tpu_torch.sketch.kernels import (BLK, HALO_PAD, NARROW_MAX_K, ROWS,

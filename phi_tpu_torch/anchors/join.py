@@ -1,7 +1,11 @@
 """Anchor tables: what the solver needs from the join, plus the stats of the
-[M::] log contract. The jax-free counterpart of `phi_tpu/anchors/join.py`
-(`AnchorTables` and the credit arrays); the host hit path that builds them
-from per-hap hits is not ported (the device path in anchors/device.py is).
+[M::] log contract. The port of `phi_tpu/anchors/join.py`'s `AnchorTables`,
+the credit arrays and `anchor_tables_from_hits`, which builds the tables on
+the host from per-haplotype join hits (the hit path of `--save-index` and
+`--load-index`) through the native library. `_anchor_tables_from_hits_py`
+is the JAX package's numpy reference of that call, kept for the tests; the
+run path has no fallback to it. The device-anchor route builds its tables
+in anchors/device.py.
 """
 
 from __future__ import annotations
@@ -10,7 +14,8 @@ import dataclasses
 
 import numpy as np
 
-from phi_tpu.graph.pangenome import PangenomeGraph
+from phi_tpu_torch import native
+from phi_tpu_torch.graph.pangenome import PangenomeGraph
 
 
 @dataclasses.dataclass
@@ -66,3 +71,119 @@ def credit_arrays(graph: PangenomeGraph, t: AnchorTables
     H, P = graph.walk_mat.shape
     return credit_arrays_from_occ(t.occ_hap, t.occ_start, t.occ_end,
                                   t.occ_weight, H, P)
+
+
+def anchor_tables_from_hits(graph: PangenomeGraph, k: int,
+                            hits: list[tuple[int, np.ndarray, np.ndarray]],
+                            spectrum_size: int,
+                            threshold: float) -> AnchorTables:
+    """Solver tables from per-hap join hits, hits[h] = (n_minimizers, k-mer
+    start base positions (ascending), spectrum ids), by the native
+    single-pass kernel: the reference's compute_anchors and threshold
+    filter. Raises if the library is missing or a haplotype's positions are
+    not ascending."""
+    H = graph.num_walks
+    per_hap_min = np.array([hits[h][0] for h in range(H)], np.int64)
+    nat = native.anchors_native(graph, k, hits, spectrum_size, threshold)
+    if nat is None:
+        raise RuntimeError("native anchor tables failed (the library is "
+                           "missing, or hit positions are not ascending)")
+    occ_hap, occ_start, occ_end, occ_kmer, n_model, filtered, per_hap = nat
+    return AnchorTables(
+        occ_hap=occ_hap, occ_start=occ_start, occ_end=occ_end,
+        occ_kmer=occ_kmer, occ_weight=np.ones(len(occ_hap), np.float32),
+        n_model_kmers=n_model, spectrum_size=spectrum_size,
+        filtered_kmers=filtered, per_hap_minimizers=per_hap_min,
+        per_hap_anchors=per_hap)
+
+
+_M1 = np.uint64(0xBF58476D1CE4E5B9)
+_M2 = np.uint64(0x94D049BB133111EB)
+_U64 = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+def _mix64(x: np.ndarray) -> np.ndarray:
+    """splitmix64-style finalizer for run-identity hashing."""
+    x ^= x >> np.uint64(30)
+    x = x * _M1
+    x ^= x >> np.uint64(27)
+    x = x * _M2
+    x ^= x >> np.uint64(31)
+    return x
+
+
+def _run_hashes(graph: PangenomeGraph, hap: np.ndarray, start: np.ndarray,
+                end: np.ndarray) -> np.ndarray:
+    """Order-sensitive hash of the vertex run walk[h][s..e] per occurrence:
+    it stands in for the reference's stringified vertex path, the anchor
+    group key (`anchor_str`, ILP_index.cpp:680-683)."""
+    n = len(hap)
+    h = np.ones(n, dtype=np.uint64)
+    if n == 0:
+        return h
+    span = (end - start).astype(np.int64)
+    wm_flat = graph.walk_mat.reshape(-1).astype(np.uint64)
+    P = graph.walk_mat.shape[1]
+    flat = hap.astype(np.int64) * P + start.astype(np.int64)
+    for j in range(int(span.max()) + 1):
+        act = span >= j
+        vtx = wm_flat[flat + j * act]  # inactive rows re-read j=0 (masked out)
+        h = np.where(act, _mix64(h ^ vtx), h)
+    return h
+
+
+def _anchor_tables_from_hits_py(graph: PangenomeGraph, k: int,
+                                hits: list[tuple[int, np.ndarray, np.ndarray]],
+                                spectrum_size: int,
+                                threshold: float) -> AnchorTables:
+    """The numpy reference of anchor_tables_from_hits: base intervals
+    [pos, pos+k-1] to walk positions by the node offsets, then the threshold
+    filter (ILP_index.cpp:670-722): occurrences of each spectrum k-mer are
+    grouped by identical vertex run, and a k-mer whose group count reaches
+    threshold * H is dropped whole."""
+    H = graph.num_walks
+    parts_h, parts_s, parts_e, parts_id = [], [], [], []
+    per_hap_minimizers = np.zeros(H, dtype=np.int64)
+    for h in range(H):
+        n_min, pos_hit, sp_id = hits[h]
+        per_hap_minimizers[h] = n_min
+        if len(pos_hit) == 0:
+            continue
+        pos_hit = pos_hit.astype(np.int64)
+        cl = graph.walk_node_cumlen[h]
+        s = np.searchsorted(cl, pos_hit, side="right") - 1
+        e = np.searchsorted(cl, pos_hit + k - 1, side="right") - 1
+        parts_h.append(np.full(len(pos_hit), h, dtype=np.int32))
+        parts_s.append(s.astype(np.int32))
+        parts_e.append(e.astype(np.int32))
+        parts_id.append(sp_id.astype(np.int32))
+
+    def cat(parts):
+        return np.concatenate(parts) if parts else np.zeros(0, np.int32)
+    occ_hap, occ_start, occ_end, occ_kmer = (
+        cat(p) for p in (parts_h, parts_s, parts_e, parts_id))
+
+    filtered_kmers = 0
+    keep_occ = np.ones(len(occ_hap), bool)
+    if len(occ_hap):
+        run_h = _run_hashes(graph, occ_hap, occ_start, occ_end)
+        group = (_mix64(occ_kmer.astype(np.uint64) ^ run_h)) & _U64
+        _, inv, counts = np.unique(group, return_inverse=True,
+                                   return_counts=True)
+        occ_bad = (counts.astype(np.float64) >= threshold * H)[inv]
+        bad_kmers = np.unique(occ_kmer[occ_bad])
+        filtered_kmers = len(bad_kmers)
+        keep_occ = ~np.isin(occ_kmer, bad_kmers)
+
+    per_hap_anchors = np.bincount(occ_hap[keep_occ],
+                                  minlength=H).astype(np.int64)
+    # solver intervals: retained multi-vertex occurrences only
+    multi = keep_occ & (occ_end > occ_start)
+    return AnchorTables(
+        occ_hap=occ_hap[multi], occ_start=occ_start[multi],
+        occ_end=occ_end[multi], occ_kmer=occ_kmer[multi],
+        occ_weight=np.ones(multi.sum(), np.float32),
+        n_model_kmers=len(np.unique(occ_kmer[multi])),
+        spectrum_size=spectrum_size, filtered_kmers=filtered_kmers,
+        per_hap_minimizers=per_hap_minimizers,
+        per_hap_anchors=per_hap_anchors)

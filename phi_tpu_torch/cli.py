@@ -2,12 +2,20 @@
 --device.
 
     python -m phi_tpu_torch.cli -g graph.gfa -r reads.fq -o hap.fa \
-        [-k 31 -w 25 -R 100 -T 1.0 ... --device cuda]
+        [-k 31 -w 25 -R 100 -T 1.0 ... --device cuda] [--save-index IDX.npz]
+    python -m phi_tpu_torch.cli -g graph.gfa --load-index IDX.npz -o hap.fa \
+        [-R 50 ...]
+
+--save-index writes the read spectrum and the per-haplotype join hits (the
+`.npz` of `phi_tpu`'s checkpoint: either package loads the other's);
+--load-index reads them instead of the reads (-r is then optional), so a
+re-solve with other solver parameters skips all sketching. Both need k <= 31
+and walks of A/C/G/T only.
 
 --device cuda (the default) needs a CUDA device: without one the command
 prints [E::main] and exits 1; it never runs on the CPU instead. --mesh,
---save-index, --load-index, --race and -d are not ported yet and are
-rejected the same way.
+--race and -d are not ported yet and are rejected the same way, as are the
+routes the port has not taken over (each names its condition).
 """
 
 from __future__ import annotations
@@ -15,8 +23,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from phi_tpu import logging as plog
-from phi_tpu.config import Options
+from phi_tpu_torch import logging as plog
+from phi_tpu_torch.config import Options
 from phi_tpu_torch import __version__
 
 
@@ -25,7 +33,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="phi-torch",
         description="PHI: pangenome haplotype inference (PyTorch/CUDA port)")
     p.add_argument("-g", dest="gfa", required=False, help="GFA file")
-    p.add_argument("-r", dest="reads", required=False, help="reads (FASTA/FASTQ)")
+    p.add_argument("-r", dest="reads", required=False,
+                   help="reads (FASTA/FASTQ); optional with --load-index")
     p.add_argument("-o", dest="out", required=False, help="output haplotype FASTA")
     p.add_argument("-k", type=int, default=31, help="k-mer size [31]")
     p.add_argument("-w", type=int, default=25, help="minimizer window size [25]")
@@ -44,9 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device for the sketch, join and solver [cuda]")
     p.add_argument("--mesh", type=int, default=0, help="(not yet ported)")
     p.add_argument("--save-index", default=None, metavar="NPZ",
-                   help="(not yet ported)")
+                   help="write the spectrum + join-hit checkpoint here")
     p.add_argument("--load-index", default=None, metavar="NPZ",
-                   help="(not yet ported)")
+                   help="solve from a checkpoint (skips reads and sketching)")
     p.add_argument("--race", default=None, help="(not yet ported)")
     p.add_argument("--version", action="store_true", help="print version")
     return p
@@ -57,7 +66,8 @@ def options_from_args(args) -> Options:
                    threshold=args.T, is_qclp=args.q, is_mixed=args.m,
                    is_naive_exp=args.N, num_threads=args.t, max_occ=args.c,
                    debug=bool(args.d), max_sweeps=args.sweeps,
-                   lagrangian_rounds=args.lagrangian)
+                   lagrangian_rounds=args.lagrangian,
+                   save_index=args.save_index, load_index=args.load_index)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -66,14 +76,13 @@ def main(argv: list[str] | None = None) -> int:
     if args.version:
         print(f"PHI version: {__version__}")
         return 0
-    for flag, val in (("--mesh", args.mesh), ("--save-index", args.save_index),
-                      ("--load-index", args.load_index),
-                      ("--race", args.race), ("-d", args.d)):
+    for flag, val in (("--mesh", args.mesh), ("--race", args.race),
+                      ("-d", args.d)):
         if val:
             sys.stderr.write(f"[E::main] {flag} is not yet ported to "
                              "phi_tpu_torch\n")
             return 1
-    if not (args.gfa and args.out and args.reads):
+    if not (args.gfa and args.out and (args.reads or args.load_index)):
         build_parser().print_usage(sys.stderr)
         return 1
 

@@ -1,12 +1,12 @@
-"""Synthetic instances and their scoring, for the smoke run and profiles.
-
-The JAX package's generator (`phi_tpu.eval.scale.build_instance`) and
-edit-distance scorer (`phi_tpu.eval.edits.edit_stats`) are host numpy code
-that loads no jax, so the port reuses them as they are. The eval runners
-themselves are not ported yet (ROADMAP.md queue 1).
+"""Synthetic instances and their scoring, for the smoke run and profiles:
+the port's copies of the JAX package's generator (`eval/synth.py`,
+`eval/scale.py`: `build_instance` writes byte-identical instances from the
+same seed) and edit-distance scorer (`eval/edits.py`, the native banded
+Myers distance). The eval runners are not ported yet (ROADMAP.md queue 1,
+item 10).
 """
 
-from phi_tpu.eval.edits import edit_stats
-from phi_tpu.eval.scale import build_instance
+from phi_tpu_torch.eval.edits import edit_stats
+from phi_tpu_torch.eval.scale import build_instance
 
 __all__ = ["build_instance", "edit_stats"]

@@ -1,11 +1,12 @@
 """The read-spectrum tables of the join and their probes.
 
 `make_cuckoo` (the two-choice cuckoo table) and `make_mixed_buckets` (the
-mixed-key sorted table, for spectra of more than CUCKOO_MAX_KEYS keys) are
-the host numpy builds of `phi_tpu/ops/search.py` (same hashes, seeds,
-placement and order, so both packages build the same tables). The probes
-are torch gathers on int64 keys; the 32-bit hashes run in int64 lanes
-masked to 32 bits after every multiply and add.
+mixed-key sorted table, for spectra of more than CUCKOO_MAX_KEYS keys and
+for the v1 join) are the host numpy builds of `phi_tpu/ops/search.py`
+(same hashes, seeds, placement and order, so both packages build the same
+tables). The probes are torch gathers on int64 keys; the 32-bit hashes run
+in int64 lanes masked to 32 bits after every multiply and add. `pair_isin`
+is the sorted-key binary search of the single-sequence join.
 """
 
 from __future__ import annotations
@@ -95,6 +96,18 @@ def make_cuckoo(sp_hi_np, sp_lo_np, max_attempts: int = 3):
         Tid = np.where(occ, slot, -1).astype(np.int32)
         return Thi, Tlo, Tid, np.uint32(seed), M
     return None
+
+
+def pair_isin(sp_key: torch.Tensor, q: torch.Tensor):
+    """(found, index) of int64 query keys in the sorted int64 spectrum keys
+    (state.spectrum_keys: (hi << 32) | lo, which sorts like (hi, lo) for
+    k <= 31); index is the searchsorted position."""
+    n = sp_key.shape[0]
+    idx = torch.searchsorted(sp_key, q)
+    if n == 0:
+        return torch.zeros(q.shape, dtype=torch.bool, device=q.device), idx
+    found = (idx < n) & (sp_key[idx.clamp(max=n - 1)] == q)
+    return found, idx
 
 
 def mul32(x: torch.Tensor, y) -> torch.Tensor:

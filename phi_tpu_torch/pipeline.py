@@ -1,12 +1,21 @@
 """End-to-end orchestration on one torch device: graph + reads -> inferred
-haplotype FASTA. The counterpart of `phi_tpu/pipeline.py`'s main path, with
-the same [M::] phase-log lines and the same `timings` keys.
+haplotype FASTA. The counterpart of `phi_tpu/pipeline.py`, with the same
+[M::] phase-log lines and the same `timings` keys.
 
-Stages: graph ingest and the read spectrum on the host (native C++, shared
-with phi_tpu); the haplotype sketch, join and threshold filter on the
-device (anchors/device.py, through the rows kernels); the exact-credit DP on
-the device (solve/dp.py); decode, the Lagrangian / subgradient / exact /
-branch-and-bound certification ladder and emit on the host.
+Stages: graph ingest and the read spectrum on the host (native C++); then
+one of two anchor routes:
+  * the device anchors (the default): the haplotype sketch, join and
+    threshold filter on the device (anchors/device.py, through the rows3,
+    rows3w or rows2 kernel);
+  * the hit path (`--save-index`, or an empty read spectrum): the v1 join
+    on the device (`sketch.kernels.join_many`, the rows kernel) returns
+    per-haplotype hits, and the anchor tables are built on the host
+    (anchors/join.py); `--save-index` writes the spectrum and hits, and
+    `--load-index` reads them back instead of the reads, so a re-solve
+    with other solver parameters skips all sketching (checkpoint.py).
+Then the exact-credit DP on the device (solve/dp.py); decode, the
+Lagrangian / subgradient / exact / branch-and-bound certification ladder
+and emit on the host.
 """
 
 from __future__ import annotations
@@ -17,21 +26,24 @@ import time
 import numpy as np
 import torch
 
-from phi_tpu import logging as plog
-from phi_tpu import native
-from phi_tpu.config import Options
-from phi_tpu.emit import recombination_report
-from phi_tpu.graph import PangenomeGraph, tensorize
-from phi_tpu.io.fasta import hap_name_from_paths, write_fasta
-from phi_tpu.io.gfa import read_gfa
-from phi_tpu.io.reads import load_read_batch
+from phi_tpu_torch import logging as plog
+from phi_tpu_torch import native
 from phi_tpu_torch.anchors.device import join_anchors_device
-from phi_tpu_torch.anchors.join import AnchorTables
+from phi_tpu_torch.anchors.join import AnchorTables, anchor_tables_from_hits
+from phi_tpu_torch.checkpoint import load_index, save_index
+from phi_tpu_torch.config import Options
+from phi_tpu_torch.emit import recombination_report
+from phi_tpu_torch.graph.pangenome import PangenomeGraph, tensorize
+from phi_tpu_torch.io.fasta import hap_name_from_paths, write_fasta
+from phi_tpu_torch.io.gfa import read_gfa
+from phi_tpu_torch.io.reads import load_read_batch
+from phi_tpu_torch.sketch.kernels import NARROW_MAX_K, join_many
 from phi_tpu_torch.solve.decode import DecodeResult, decode_path
 from phi_tpu_torch.solve.dp import LAST_TIMINGS, solve_dp
 from phi_tpu_torch.solve.prep import build_solver_tables
 
 _NOT_PORTED = "not yet ported to phi_tpu_torch"
+_HOST_JOIN = "the host join is " + _NOT_PORTED + " (ROADMAP.md queue 1, item 6)"
 
 
 @dataclasses.dataclass
@@ -81,12 +93,10 @@ def read_spectrum(reads, k: int, w: int) -> tuple[np.ndarray, np.ndarray]:
             (uniq & np.uint64(0xFFFFFFFF)).astype(np.uint32))
 
 
-def run_pipeline(gfa_path: str, reads_path: str, out_path: str | None,
+def run_pipeline(gfa_path: str, reads_path: str | None, out_path: str | None,
                  opt: Options, device="cuda") -> PipelineResult:
     device = resolve_device(device)
-    for flag, val in (("--mesh", opt.mesh_devices), ("-d", opt.debug),
-                      ("--save-index", opt.save_index),
-                      ("--load-index", opt.load_index)):
+    for flag, val in (("--mesh", opt.mesh_devices), ("-d", opt.debug)):
         if val:
             raise NotImplementedError(f"{flag} is {_NOT_PORTED}")
     if not native_available():
@@ -106,40 +116,72 @@ def run_pipeline(gfa_path: str, reads_path: str, out_path: str | None,
     plog.log("main", f"Loaded graph from: {gfa_path}")
     timings["load_graph"] = time.time() - t0
 
-    t1 = time.time()
-    reads = load_read_batch(reads_path)
-    timings["load_reads"] = time.time() - t1
-    plog.log("ILP_function",
-             f"Graph has {graph.n_vtx} vertices, {graph.num_walks} walks "
-             f"and read has {reads.n_reads} reads")
-    t1 = time.time()
-    spectrum = read_spectrum(reads, opt.k, opt.w)
-    timings["sketch_reads"] = time.time() - t1
-    if len(spectrum[0]) == 0:
-        raise NotImplementedError(f"an empty read spectrum (the host hit "
-                                  f"path) is {_NOT_PORTED}")
+    hits = None
+    if opt.load_index:
+        # the checkpoint: the spectrum and the per-hap join hits of an
+        # earlier --save-index run; parameter re-solves skip sketching
+        t1 = time.time()
+        spectrum, hits, meta = load_index(opt.load_index)
+        if meta and (int(meta.get("k", opt.k)) != opt.k
+                     or int(meta.get("w", opt.w)) != opt.w):
+            raise ValueError(
+                f"index {opt.load_index} was built with k={meta.get('k')} "
+                f"w={meta.get('w')}, run requests k={opt.k} w={opt.w}")
+        if len(hits) != graph.num_walks:
+            raise ValueError(
+                f"index {opt.load_index} has {len(hits)} haplotypes, "
+                f"graph has {graph.num_walks}")
+        plog.log("ILP_function",
+                 f"Loaded index from {opt.load_index}: spectrum "
+                 f"{len(spectrum[0])}, {graph.num_walks} haplotypes")
+        timings["load_reads"] = 0.0
+        timings["sketch_reads"] = 0.0
+        timings["sketch_haps"] = time.time() - t1
+    else:
+        t1 = time.time()
+        reads = load_read_batch(reads_path)
+        timings["load_reads"] = time.time() - t1
+        plog.log("ILP_function",
+                 f"Graph has {graph.n_vtx} vertices, {graph.num_walks} walks "
+                 f"and read has {reads.n_reads} reads")
+        t1 = time.time()
+        spectrum = read_spectrum(reads, opt.k, opt.w)
+        timings["sketch_reads"] = time.time() - t1
 
-    # --- haplotype sketch + join + threshold filter, on the device ---
-    t1 = time.time()
-    plog.raw("Number of Minimizers")
-    hap_codes = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
-    per_hap_min, dev_occ = join_anchors_device(
-        graph, hap_codes, opt.k, opt.w, spectrum[0], spectrum[1],
-        opt.threshold, device=device)
-    for h in range(graph.num_walks):
-        plog.raw(f"{graph.walk_names[h]} : {per_hap_min[h]}")
-    anchors = AnchorTables(
-        occ_hap=None, occ_start=None, occ_end=None, occ_kmer=None,
-        occ_weight=None, n_model_kmers=dev_occ.n_model,
-        spectrum_size=len(spectrum[0]), filtered_kmers=dev_occ.filtered,
-        per_hap_minimizers=per_hap_min,
-        per_hap_anchors=dev_occ.per_hap_anchors, device_occ=dev_occ)
-    plog.log("ILP_function", "Haplotypes sketched")
-    timings["sketch_haps"] = time.time() - t1
-    plog.log("ILP_function",
-             f"Indexed reads with spectrum size: {len(spectrum[0])}")
+        t1 = time.time()
+        plog.raw("Number of Minimizers")
+        hap_codes = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
+        if opt.save_index or len(spectrum[0]) == 0:
+            hits = _join_hits(hap_codes, opt, spectrum, device)
+            per_hap_min = [n for n, _, _ in hits]
+        else:
+            # haplotype sketch + join + threshold filter, on the device
+            per_hap_min, dev_occ = join_anchors_device(
+                graph, hap_codes, opt.k, opt.w, spectrum[0], spectrum[1],
+                opt.threshold, device=device)
+            anchors = AnchorTables(
+                occ_hap=None, occ_start=None, occ_end=None, occ_kmer=None,
+                occ_weight=None, n_model_kmers=dev_occ.n_model,
+                spectrum_size=len(spectrum[0]),
+                filtered_kmers=dev_occ.filtered,
+                per_hap_minimizers=per_hap_min,
+                per_hap_anchors=dev_occ.per_hap_anchors, device_occ=dev_occ)
+        for h in range(graph.num_walks):
+            plog.raw(f"{graph.walk_names[h]} : {per_hap_min[h]}")
+        plog.log("ILP_function", "Haplotypes sketched")
+        timings["sketch_haps"] = time.time() - t1
+        plog.log("ILP_function",
+                 f"Indexed reads with spectrum size: {len(spectrum[0])}")
+        if opt.save_index:
+            save_index(opt.save_index, spectrum, hits,
+                       meta={"k": opt.k, "w": opt.w})
+            plog.log("ILP_function", f"Index saved to {opt.save_index}")
 
+    # --- anchor tables (host, on the hit path) + the log contract ---
     t1 = time.time()
+    if hits is not None:
+        anchors = anchor_tables_from_hits(graph, opt.k, hits,
+                                          len(spectrum[0]), opt.threshold)
     plog.raw("Number of Anchors")
     for h in range(graph.num_walks):
         plog.raw(f"{graph.walk_names[h]} : {anchors.per_hap_anchors[h]}")
@@ -181,7 +223,9 @@ def run_pipeline(gfa_path: str, reads_path: str, out_path: str | None,
     t1 = time.time()
     seq = graph.path_seq(result.vertices)
     if out_path is not None:
-        write_fasta(out_path, hap_name_from_paths(gfa_path, reads_path), seq)
+        name = hap_name_from_paths(gfa_path,
+                                   reads_path or opt.load_index or "index")
+        write_fasta(out_path, name, seq)
         plog.log("ILP_function",
                  f"Haplotype of size: {len(seq)} written to: {out_path}")
     timings["emit"] = time.time() - t1
@@ -190,6 +234,24 @@ def run_pipeline(gfa_path: str, reads_path: str, out_path: str | None,
         sequence=seq, decode=result, anchors=anchors,
         recombination_count=recomb, report_segments=segs,
         graph=graph, timings=timings)
+
+
+def _join_hits(hap_codes, opt: Options, spectrum, device):
+    """The hit path's join: per-hap (n_minimizers, positions, spectrum ids)
+    from join_many on the device. Where the reference takes its host join
+    (k > 31, a walk holding N), this raises and names the condition."""
+    if opt.k > NARROW_MAX_K:
+        raise NotImplementedError(
+            f"the hit path (--save-index or an empty read spectrum) with "
+            f"k={opt.k} > {NARROW_MAX_K}: {_HOST_JOIN}")
+    hits = join_many(hap_codes, opt.k, opt.w, spectrum[0], spectrum[1],
+                     device=device)
+    n_walks = [h for h, out in enumerate(hits) if out is None]
+    if n_walks:
+        raise NotImplementedError(
+            f"the hit path (--save-index or an empty read spectrum) with "
+            f"walk {n_walks[0]} holding non-ACGT bases: {_HOST_JOIN}")
+    return hits
 
 
 def _hydrate_tables(tables, anchors) -> None:
@@ -238,9 +300,16 @@ def _solve_with_refinement(graph: PangenomeGraph, anchors: AnchorTables,
     branch-and-bound, each only while the gap stays above gap_tol."""
     from phi_tpu_torch.solve.prep import _bucket_layers, solver_layers
     layers = solver_layers(graph, opt.k)
-    if anchors.device_occ.max_span > 0:
-        # shrink the W stack to the spans actually present
-        layers = min(layers, _bucket_layers(anchors.device_occ.max_span - 1))
+    # shrink the W stack to the spans actually present (no compile cache to
+    # keep stable, so every route shrinks, as phi_tpu does on its CPU
+    # backend)
+    if anchors.device_occ is not None:
+        max_span = anchors.device_occ.max_span
+    else:
+        max_span = int((anchors.occ_end - anchors.occ_start).max()) \
+            if len(anchors.occ_hap) else 0
+    if max_span > 0:
+        layers = min(layers, _bucket_layers(max_span - 1))
     tables = build_solver_tables(graph, anchors, opt.recombination, layers)
     best = _solve_and_decode(graph, tables, anchors, opt, device)
     best_bound = best.dp_objective

@@ -1,16 +1,20 @@
 """The haplotype sketch and join on the device: the rows kernel family.
 
-Three kernels, ports of the Pallas TPU kernels in
-`phi_tpu/sketch/kernels.py`, are compile-time variants of one hand-written
-Hopper source, `csrc/rows.cu` (built with nvcc on first use into `_build/`,
-loaded with ctypes):
+Five kernels, ports of the Pallas TPU kernels in `phi_tpu/sketch/kernels.py`,
+are compile-time variants of one hand-written Hopper source, `csrc/rows.cu`
+(built with nvcc on first use into `_build/`, loaded with ctypes):
   * `sketch_rows3` (`_make_kernel_rows3`): k <= 31, the emitted minimizers
     of each 8192-lane block left-compacted into C slots (the main path);
   * `sketch_rows3w` (`_make_kernel_rows3w`): the same for 31 < k <= 63,
     with a 126-bit key;
   * `sketch_rows2` (`_make_kernel_rows2`): k <= 31, full-lane outputs and
     an emit flag (the v2 route: spectra too large for the cuckoo table,
-    and dense node chops).
+    and dense node chops);
+  * `sketch_rows` (`_make_kernel_rows`, the v1 kernel): k <= 31, full
+    lanes with the selected k-mer's row-local start instead of its walk
+    interval (the hit path of `--save-index`);
+  * `sketch_seq` (`_make_kernel`): `sketch_rows` on codes that may hold N;
+    a k-mer holding one is dead (never selected).
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
 its plain torch twin (`sketch_rows3_torch`, ...), which computes the same
 outputs over whole rows in int64.
@@ -28,14 +32,18 @@ unpack, the node-start plane, the kernel, for rows3w the fold of the key to
 the 64-bit join key, the cuckoo slot probe, the hit flatten and the slot ->
 spectrum id remap); `join_rows2` and `join_rows2_ck` port
 `_pallas_join_rows2` (mixed-bucket probe) and `_pallas_join_rows2_ck`
-(cuckoo probe), with the emitted-lane compaction into [R, emitcap].
+(cuckoo probe), with the emitted-lane compaction into [R, emitcap];
+`join_rows` and `join_many` port `_pallas_join_rows` and `pallas_join_many`
+(per-haplotype hit positions and spectrum ids); `sketch_sequence` and
+`join_sequence` port `pallas_sketch_sequence` and `pallas_join_sequence`.
 
 Keys are int64: a k <= 31 canonical k-mer is (hi << 32) | lo, which orders
 like the reference's (hi, lo) pair; a dead lane is -1, i.e. (UMAX, UMAX).
 A 31 < k <= 63 key is two int64 words, hi = w3:w2 (below 2^62) and
 lo = w1:w0 (all 64 bits used, so the twin compares it with its sign bit
 flipped); a dead slot is (-1, -1). Packed intervals `se` are int64 holding
-the reference's u32 value ((s << 6) | min(e - s, 63)), UMAX32 on dead lanes.
+the reference's u32 value ((s << 6) | min(e - s, 63)), UMAX32 on dead lanes;
+positions are int32, -1 on dead lanes.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ SUPER_BLOCKS = 256  # blocks per row: 2,097,152 windows
 ROWS = 8            # rows per batch
 UMAX32 = 0xFFFFFFFF
 DEAD_KEY = -1       # (UMAX, UMAX) as one int64
+_DEAD_MIN = (1 << 63) - 1  # a dead k-mer inside the twin's window minimum
 NARROW_MAX_K = 31   # one int64 key; 31 < k <= WIDE_MAX_K takes rows3w
 WIDE_MAX_K = 63
 
@@ -221,8 +230,7 @@ def fold128_64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
 
 # -------------------------------------------------- the kernels' twins
 
-def _check_rows(name, codes, nd, nvalid, left, node_off, k, w, C,
-                k_range) -> None:
+def _check(name, k, w, k_range, C, codes, want) -> None:
     if not k_range[0] <= k <= k_range[1]:
         raise ValueError(f"{name} needs {k_range[0]} <= k <= {k_range[1]}, "
                          f"got k={k}")
@@ -231,15 +239,6 @@ def _check_rows(name, codes, nd, nvalid, left, node_off, k, w, C,
                          f"w={w}")
     if C is not None and not 1 <= C <= BLK:
         raise ValueError(f"{name} needs 1 <= C <= {BLK}, got C={C}")
-    if codes.dim() != 2 or node_off.dim() != 2:
-        raise ValueError("codes [R, L] and node_off [R, SB] expected")
-    R, L = codes.shape
-    SB = node_off.shape[1]
-    want = {"codes": (codes, torch.uint8, (R, (SB + 1) * BLK)),
-            "nd": (nd, torch.uint8, (R, (SB + 1) * BLK)),
-            "nvalid": (nvalid, torch.int32, (R,)),
-            "left": (left, torch.int32, (R,)),
-            "node_off": (node_off, torch.int32, (R, SB))}
     for arg, (t, dt, shape) in want.items():
         if t.dtype != dt or tuple(t.shape) != shape:
             raise ValueError(f"{name} {arg}: want {dt} {shape}, got "
@@ -249,6 +248,36 @@ def _check_rows(name, codes, nd, nvalid, left, node_off, k, w, C,
                              f"{codes.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} {arg} is not contiguous")
+
+
+def _check_rows(name, codes, nd, nvalid, left, node_off, k, w, C,
+                k_range) -> None:
+    """Inputs of the interval variants (rows3, rows3w, rows2)."""
+    if codes.dim() != 2 or node_off.dim() != 2:
+        raise ValueError("codes [R, L] and node_off [R, SB] expected")
+    R = codes.shape[0]
+    SB = node_off.shape[1]
+    _check(name, k, w, k_range, C, codes, {
+        "codes": (codes, torch.uint8, (R, (SB + 1) * BLK)),
+        "nd": (nd, torch.uint8, (R, (SB + 1) * BLK)),
+        "nvalid": (nvalid, torch.int32, (R,)),
+        "left": (left, torch.int32, (R,)),
+        "node_off": (node_off, torch.int32, (R, SB))})
+
+
+def _check_pos(name, codes, nvalid, left, k, w) -> int:
+    """Inputs of the position variants (rows, seq; seq has no left).
+    Returns SB, the blocks per row: codes hold SB + 1 blocks."""
+    if codes.dim() != 2 or codes.shape[1] % BLK or codes.shape[1] < 2 * BLK:
+        raise ValueError(f"{name} codes: want [R, (SB+1)*{BLK}] with "
+                         f"SB >= 1, got {tuple(codes.shape)}")
+    R, L = codes.shape
+    want = {"codes": (codes, torch.uint8, (R, L)),
+            "nvalid": (nvalid, torch.int32, (R,))}
+    if left is not None:
+        want["left"] = (left, torch.int32, (R,))
+    _check(name, k, w, (1, NARROW_MAX_K), None, codes, want)
+    return L // BLK - 1
 
 
 def _canonical(x: torch.Tensor, k: int, nk: int, wide: bool):
@@ -293,19 +322,29 @@ def _wmin_step(keys, pos, s):
             torch.where(take_b, pos[:, s:], pos[:, :-s]))
 
 
-def _lane_minimizers(codes, nd, nvalid, left, node_off, k: int, w: int,
-                     wide: bool):
-    """Every window lane of the rows: (selected key columns as _canonical
-    gives them, packed interval se, emit, valid), each [R, SB*BLK]."""
+def _window_minimizers(codes, nvalid, left, k: int, w: int, wide: bool,
+                       ncode: bool = False):
+    """Every window lane 0 .. SB*BLK-1 of the rows: (selected key columns as
+    _canonical gives them, q = row-local start of the selected k-mer, emit,
+    valid). With ncode, codes may hold N (>= 4): a k-mer holding one enters
+    the minimum as the largest key, and a window of such k-mers is not
+    valid."""
     R = codes.shape[0]
-    SB = node_off.shape[1]
-    n_out = SB * BLK
+    n_out = codes.shape[1] - BLK
     dev = codes.device
     i64 = torch.int64
     # index i holds lane i - 1; lane -1 is the left base (0 when none)
     x = torch.cat([left.clamp(min=0).to(i64)[:, None], codes.to(i64)], 1)
     nk = n_out + w
+    if ncode:
+        bad = x > 3
+        dead = torch.zeros((R, nk), dtype=torch.bool, device=dev)
+        for j in range(k):
+            dead |= bad[:, j:j + nk]
+        x = x & 3
     keys = _canonical(x, k, nk, wide)
+    if ncode:
+        keys = [torch.where(dead, _DEAD_MIN, keys[0])]
     pos = torch.arange(nk, dtype=i64, device=dev).expand(R, nk)
     sdl = 1
     while sdl * 2 <= w:
@@ -313,28 +352,44 @@ def _lane_minimizers(codes, nd, nvalid, left, node_off, k: int, w: int,
         sdl *= 2
     if w > sdl:
         keys, pos = _wmin_step(keys, pos, w - sdl)
-    # windows at lanes -1 .. n_out-1; q = lane of the selected k-mer
+    # windows at lanes -1 .. n_out-1
     cur = [c[:, 1:] for c in keys]
     differs = torch.zeros((R, n_out), dtype=torch.bool, device=dev)
     for c in keys:
         differs |= c[:, 1:] != c[:, :-1]
-    q = pos[:, 1:] - 1
     lanes = torch.arange(n_out, dtype=i64, device=dev)
     valid = lanes[None, :] < nvalid.long()[:, None]
-    prev_valid = torch.cat([(left >= 0)[:, None], valid[:, :-1]], 1)
+    prev0 = left >= 0
+    if ncode:
+        live = keys[0] != _DEAD_MIN
+        valid &= live[:, 1:]
+        prev0 = prev0 & live[:, 0]
+    prev_valid = torch.cat([prev0[:, None], valid[:, :-1]], 1)
     emit = valid & (differs | ~prev_valid)
+    return cur, pos[:, 1:] - 1, emit, valid
 
-    # walk-position interval of the selected k-mer, counted from its
-    # window's block offset
+
+def _intervals(nd, node_off, q, k: int):
+    """Packed walk-position interval of each lane's selected k-mer (q its
+    row-local start), counted from its window's block offset."""
+    R, n_out = q.shape
+    i64 = torch.int64
     scan = torch.cumsum(nd.to(i64), 1)
-    blk = lanes // BLK
-    before = torch.cat([torch.zeros((R, 1), dtype=i64, device=dev),
+    blk = torch.arange(n_out, dtype=i64, device=q.device) // BLK
+    before = torch.cat([torch.zeros((R, 1), dtype=i64, device=q.device),
                         scan[:, BLK - 1:n_out - 1:BLK]], 1)
     base = (node_off.long() - before)[:, blk]
     s = base + scan.gather(1, q)
     e = base + scan.gather(1, q + (k - 1))
-    se = ((s << 6) & UMAX32) | (e - s).clamp(max=63)
-    return cur, se, emit, valid
+    return ((s << 6) & UMAX32) | (e - s).clamp(max=63)
+
+
+def _lane_minimizers(codes, nd, nvalid, left, node_off, k: int, w: int,
+                     wide: bool):
+    """Every window lane of the interval rows: (selected key columns, packed
+    interval se, emit, valid), each [R, SB*BLK]."""
+    cur, q, emit, valid = _window_minimizers(codes, nvalid, left, k, w, wide)
+    return cur, _intervals(nd, node_off, q, k), emit, valid
 
 
 def _compact(emit, cols, SB: int, C: int):
@@ -400,6 +455,37 @@ def sketch_rows2_torch(codes, nd, nvalid, left, node_off, k: int, w: int):
             torch.where(valid, se, UMAX32), emit)
 
 
+def _pos_outputs(key, q, emit, valid):
+    return (torch.where(valid, key, DEAD_KEY),
+            torch.where(valid, q, -1).to(torch.int32), emit)
+
+
+def sketch_rows_torch(codes, nvalid, left, k: int, w: int):
+    """Plain torch twin of the rows (v1) kernel.
+
+    codes: uint8 [R, (SB+1)*BLK] (2-bit codes, < 4); nvalid, left: int32
+    [R]. Returns (key int64, pos int32, emit bool), each [R, SB*BLK]: every
+    window lane's minimizer, the row-local start of its k-mer and whether
+    the lane emits; key and pos are dead (-1) on lanes past nvalid."""
+    _check_pos("rows", codes, nvalid, left, k, w)
+    (key,), q, emit, valid = _window_minimizers(codes, nvalid, left, k, w,
+                                                False)
+    return _pos_outputs(key, q, emit, valid)
+
+
+def sketch_seq_torch(codes, nvalid, k: int, w: int):
+    """Plain torch twin of the single-sequence kernel: the rows twin on
+    codes that may hold N (>= 4), with no left base. A k-mer holding N is
+    never selected; a window of such k-mers is not valid (dead key and
+    pos -1, no emit), and the next valid window emits."""
+    _check_pos("seq", codes, nvalid, None, k, w)
+    left = torch.full((codes.shape[0],), -1, dtype=torch.int32,
+                      device=codes.device)
+    (key,), q, emit, valid = _window_minimizers(codes, nvalid, left, k, w,
+                                                False, ncode=True)
+    return _pos_outputs(key, q, emit, valid)
+
+
 # ------------------------------------------------ the kernels on the card
 
 _lib_lock = threading.Lock()
@@ -444,23 +530,29 @@ def build_rows() -> ctypes.CDLL:
         lib.phi_rows3_launch.argtypes = inputs + [ci, vp, vp, vp, vp]
         lib.phi_rows3w_launch.argtypes = inputs + [ci, vp, vp, vp, vp, vp]
         lib.phi_rows2_launch.argtypes = inputs + [vp, vp, vp, vp]
+        pos_inputs = [vp, vp, vp, cl, ci, ci, ci, ci]
+        lib.phi_rows_launch.argtypes = pos_inputs + [vp, vp, vp, vp]
+        lib.phi_seq_launch.argtypes = pos_inputs + [vp, vp, vp, vp]
         for fn in (lib.phi_rows3_launch, lib.phi_rows3w_launch,
-                   lib.phi_rows2_launch):
+                   lib.phi_rows2_launch, lib.phi_rows_launch,
+                   lib.phi_seq_launch):
             fn.restype = ci
         _lib = lib
         return lib
 
 
-def _launch(name: str, codes, nd, nvalid, left, node_off, k: int, w: int,
-            extra: tuple, outs: tuple) -> None:
-    """Launch the kernel `phi_{name}_launch` on the current stream of
-    codes' device; raises if the launch fails."""
+def _launch(name: str, ins: tuple, SB: int, k: int, w: int, extra: tuple,
+            outs: tuple) -> None:
+    """Launch the kernel `phi_{name}_launch` on the current stream of the
+    first input's device: the input tensors (None for a null pointer), then
+    row_lanes, R, SB, k, w, the extra ints, the outputs and the stream.
+    Raises if the launch fails."""
+    codes = ins[0]
     fn = getattr(build_rows(), f"phi_{name}_launch")
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
-        rc = fn(codes.data_ptr(), nd.data_ptr(), nvalid.data_ptr(),
-                left.data_ptr(), node_off.data_ptr(), codes.shape[1],
-                codes.shape[0], node_off.shape[1], k, w, *extra,
+        rc = fn(*(None if t is None else t.data_ptr() for t in ins),
+                codes.shape[1], codes.shape[0], SB, k, w, *extra,
                 *(t.data_ptr() for t in outs), stream)
     if rc != 0:
         raise RuntimeError(f"{name} CUDA launch failed: cudaError {rc}")
@@ -488,7 +580,7 @@ def sketch_rows3(codes, nd, nvalid, left, node_off, k: int, w: int, C: int):
     key = torch.empty((R, SB * C), dtype=torch.int64, device=codes.device)
     se = torch.empty_like(key)
     cnt = torch.empty((R, SB), dtype=torch.int32, device=codes.device)
-    _launch("rows3", codes, nd, nvalid, left, node_off, k, w, (C,),
+    _launch("rows3", (codes, nd, nvalid, left, node_off), SB, k, w, (C,),
             (key, se, cnt))
     sketch_rows3.launches += 1
     return key, se, cnt
@@ -509,7 +601,7 @@ def sketch_rows3w(codes, nd, nvalid, left, node_off, k: int, w: int,
     lo = torch.empty_like(hi)
     se = torch.empty_like(hi)
     cnt = torch.empty((R, SB), dtype=torch.int32, device=codes.device)
-    _launch("rows3w", codes, nd, nvalid, left, node_off, k, w, (C,),
+    _launch("rows3w", (codes, nd, nvalid, left, node_off), SB, k, w, (C,),
             (hi, lo, se, cnt))
     sketch_rows3w.launches += 1
     return hi, lo, se, cnt
@@ -527,25 +619,58 @@ def sketch_rows2(codes, nd, nvalid, left, node_off, k: int, w: int):
     key = torch.empty((R, SB * BLK), dtype=torch.int64, device=codes.device)
     se = torch.empty_like(key)
     emit = torch.empty((R, SB * BLK), dtype=torch.bool, device=codes.device)
-    _launch("rows2", codes, nd, nvalid, left, node_off, k, w, (),
+    _launch("rows2", (codes, nd, nvalid, left, node_off), SB, k, w, (),
             (key, se, emit))
     sketch_rows2.launches += 1
     return key, se, emit
 
 
+def _launch_pos(name: str, codes, nvalid, left, SB: int, k: int, w: int):
+    R = codes.shape[0]
+    key = torch.empty((R, SB * BLK), dtype=torch.int64, device=codes.device)
+    pos = torch.empty((R, SB * BLK), dtype=torch.int32, device=codes.device)
+    emit = torch.empty((R, SB * BLK), dtype=torch.bool, device=codes.device)
+    _launch(name, (codes, nvalid, left), SB, k, w, (), (key, pos, emit))
+    return key, pos, emit
+
+
+def sketch_rows(codes, nvalid, left, k: int, w: int):
+    """rows (v1) sketch: the CUDA kernel for CUDA tensors, the torch twin
+    for CPU tensors (see sketch_rows_torch); `sketch_rows.launches` counts
+    kernel launches."""
+    if not _on_card("rows", codes):
+        return sketch_rows_torch(codes, nvalid, left, k, w)
+    SB = _check_pos("rows", codes, nvalid, left, k, w)
+    out = _launch_pos("rows", codes, nvalid, left, SB, k, w)
+    sketch_rows.launches += 1
+    return out
+
+
+def sketch_seq(codes, nvalid, k: int, w: int):
+    """Single-sequence sketch (codes may hold N): the CUDA kernel for CUDA
+    tensors, the torch twin for CPU tensors (see sketch_seq_torch);
+    `sketch_seq.launches` counts kernel launches."""
+    if not _on_card("seq", codes):
+        return sketch_seq_torch(codes, nvalid, k, w)
+    SB = _check_pos("seq", codes, nvalid, None, k, w)
+    out = _launch_pos("seq", codes, nvalid, None, SB, k, w)
+    sketch_seq.launches += 1
+    return out
+
+
 sketch_rows3.launches = 0
 sketch_rows3w.launches = 0
 sketch_rows2.launches = 0
+sketch_rows.launches = 0
+sketch_seq.launches = 0
 
 
 # ------------------------------------------------------------ the joins
 
-def flatten_hits(n_min, found, idx, se, hap_of_row, cap_total: int):
-    """Row-major flattening of the hit columns (packed interval, idx, hap)
-    into [cap_total] arrays; idx is a table slot or a spectrum id. Hits past
-    cap_total are dropped (n_hit stays exact). Dead lanes can match empty
-    cuckoo slots, so hits are masked to live intervals."""
-    hit = found & (se != UMAX32)
+def _flatten(hit, cols, cap_total: int):
+    """Row-major flattening of the hit lanes of each (values, fill) column
+    into [cap_total] arrays; hits past cap_total are dropped. Returns
+    (n_hit [R], the flat columns)."""
     n_hit = hit.sum(1)
     base = torch.cumsum(n_hit, 0) - n_hit
     horder = torch.cumsum(hit.long(), 1) - 1 + base[:, None]
@@ -558,8 +683,19 @@ def flatten_hits(n_min, found, idx, se, hap_of_row, cap_total: int):
         out.scatter_(0, hdst, vals.reshape(-1).long())
         return out[:cap_total]
 
+    return n_hit, [flat(vals, fill) for vals, fill in cols]
+
+
+def flatten_hits(n_min, found, idx, se, hap_of_row, cap_total: int):
+    """Row-major flattening of the hit columns (packed interval, idx, hap)
+    into [cap_total] arrays; idx is a table slot or a spectrum id. Hits past
+    cap_total are dropped (n_hit stays exact). Dead lanes can match empty
+    cuckoo slots, so hits are masked to live intervals."""
     hap_b = hap_of_row.long()[:, None].expand(se.shape)
-    return n_min, n_hit, flat(se, UMAX32), flat(idx, -1), flat(hap_b, -1)
+    n_hit, (f_se, f_idx, f_hap) = _flatten(
+        found & (se != UMAX32), [(se, UMAX32), (idx, -1), (hap_b, -1)],
+        cap_total)
+    return n_min, n_hit, f_se, f_idx, f_hap
 
 
 def _kernel_inputs(words, nd, base_node, n_blocks: int):
@@ -611,9 +747,11 @@ def join_rows3w(words, starts, nvalid, left, base_node, hap_of_row,
                            tid, seed, cap_total)
 
 
-def compact_emitted(emit, key, se, emitcap: int):
+def compact_emitted(emit, key, se, emitcap: int, se_fill: int = UMAX32):
     """Each row's emitted lanes, in lane order, into [R, emitcap] columns
-    (key, se), dead-padded (-1, UMAX32); lanes past emitcap are dropped."""
+    (key, passenger), dead-padded (-1, se_fill); the passenger is the
+    packed interval (v2) or the k-mer position (v1, se_fill -1). Lanes past
+    emitcap are dropped."""
     order = torch.cumsum(emit.long(), 1) - 1
     dst = torch.where(emit, order.clamp(max=emitcap), emitcap)
 
@@ -622,7 +760,7 @@ def compact_emitted(emit, key, se, emitcap: int):
                          dtype=torch.int64, device=emit.device)
         return out.scatter_(1, dst, vals)[:, :emitcap]
 
-    return gather(key, DEAD_KEY), gather(se, UMAX32)
+    return gather(key, DEAD_KEY), gather(se.long(), se_fill)
 
 
 def _join_lanes(words, deltas, nvalid, left, base_node, k: int, w: int,
@@ -662,3 +800,188 @@ def join_rows2_ck(words, deltas, nvalid, left, base_node, hap_of_row, tkey,
     ids = torch.where(found, tid[slot.clamp(min=0)], -1)
     return flatten_hits(n_min, found & (ids >= 0), ids, se, hap_of_row,
                         cap_total)
+
+
+def join_rows(words, nvalid, left, table, k: int, w: int, n_blocks: int,
+              emitcap: int, cap_total: int):
+    """One v1 batch (the port of _pallas_join_rows): the 2-bit unpack, the
+    rows kernel, the emitted-lane compaction, the mixed-bucket probe (table
+    as ops.search.mixed_tensors gives it) and the flatten of the hits'
+    (row-local k-mer start, spectrum id). Returns (n_min, n_hit, f_pos,
+    f_id): counts per row and flat [cap_total] columns, -1 padded. n_min is
+    exact; emitted lanes past emitcap and hits past cap_total are dropped
+    (the caller reruns with larger caps)."""
+    from phi_tpu_torch.ops.search import pair_isin_mixed
+    codes = unpack_2bit(words, (n_blocks + 1) * BLK)
+    key, pos, emit = sketch_rows(codes, nvalid, left, k, w)
+    ekey, epos = compact_emitted(emit, key, pos, emitcap, -1)
+    m, lo, perm, off, rounds, bits = table
+    found, ids = pair_isin_mixed(m, lo, perm, off, ekey, rounds, bits)
+    n_hit, (f_pos, f_id) = _flatten(found & (epos >= 0),
+                                    [(epos, -1), (ids, -1)], cap_total)
+    return emit.sum(1), n_hit, f_pos, f_id
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def _empty_hits() -> tuple[int, np.ndarray, np.ndarray]:
+    return 0, np.zeros(0, np.int32), np.zeros(0, np.int32)
+
+
+def plan_join_rows(seqs: list[np.ndarray], k: int, w: int,
+                   super_blocks: int = SUPER_BLOCKS):
+    """The v1 join's rows: (results, rows). results holds the empty hits of
+    each sequence shorter than one window and None elsewhere; rows are the
+    (si, start, n_windows, cont) of the other A/C/G/T sequences, at most
+    super_blocks * BLK windows each. A sequence holding N gets no rows (its
+    result stays None: the caller's host join)."""
+    halo = k + w - 2
+    sup = super_blocks * BLK
+    results: list = [None] * len(seqs)
+    rows: list[tuple[int, int, int, int]] = []
+    for i, codes in enumerate(seqs):
+        L = len(codes)
+        if L < w + k - 1:
+            results[i] = _empty_hits()
+            continue
+        if (codes >= 4).any():
+            continue
+        for start in range(0, max(1, L - halo), sup):
+            rows.append((i, start, min(sup, L - halo - start),
+                         1 if start else 0))
+    return results, rows
+
+
+def pack_join_batch(seqs, batch, row_lanes: int, device):
+    """One v1 batch on the device: (words int32 view [R, row_lanes // 16],
+    nvalid int32 [R], left int32 [R])."""
+    from phi_tpu_torch import state
+    return (state.words_tensor(pack_rows_2bit(seqs, batch, row_lanes),
+                               device),
+            torch.tensor([r[2] for r in batch], dtype=torch.int32,
+                         device=device),
+            torch.from_numpy(pack_row_left(seqs, batch)).to(device))
+
+
+def join_many(seqs: list[np.ndarray], k: int, w: int, sp_hi, sp_lo, *,
+              device, rows_per_call: int = ROWS,
+              super_blocks: int = SUPER_BLOCKS):
+    """Sketch + join of many sequences against the read spectrum (the port
+    of pallas_join_many): per sequence, (n_minimizers, hit positions int32,
+    hit spectrum ids int32), hits in position order. A sequence holding N
+    comes back None (the caller's host join), one shorter than a window
+    empty.
+
+    Each sequence is cut into rows of super_blocks * BLK windows
+    (plan_join_rows), batched rows_per_call at a time. A row that continues
+    a sequence takes the base at start - 1 as its left context
+    (pack_row_left), so rows and batches carry nothing. A batch whose
+    emitted lanes overflow emitcap or whose hits overflow cap_total (the
+    reference's join_caps) is rerun with the caps raised to the next power
+    of two; n_min is exact either way."""
+    if not 1 <= k <= NARROW_MAX_K:
+        raise ValueError(f"join_many needs 1 <= k <= {NARROW_MAX_K}, "
+                         f"got k={k}")
+    if k + w - 2 > HALO_PAD:
+        raise ValueError(f"k + w - 2 must be <= {HALO_PAD}")
+    from phi_tpu_torch.ops.search import mixed_tensors
+    row_lanes = (super_blocks + 1) * BLK
+    results, rows = plan_join_rows(seqs, k, w, super_blocks)
+    if not rows:
+        return results
+    table = mixed_tensors(sp_hi, sp_lo, device)
+    R = rows_per_call
+    caps = (emit_cap(w, super_blocks), hit_cap(w, super_blocks, R))
+    n_batches = -(-len(rows) // R)
+    padded = rows + [(-1, 0, 0, 0)] * (n_batches * R - len(rows))
+    acc: dict[int, tuple[int, list, list]] = {}
+    for b in range(n_batches):
+        batch = padded[b * R:(b + 1) * R]
+        words, nv, left = pack_join_batch(seqs, batch, row_lanes, device)
+        emitcap, cap_total = caps
+        while True:
+            n_min, n_hit, f_pos, f_id = join_rows(
+                words, nv, left, table, k, w, super_blocks, emitcap,
+                cap_total)
+            nm, nh = torch.stack([n_min, n_hit]).cpu().numpy()
+            if nm.max() <= emitcap and nh.sum() <= cap_total:
+                break
+            emitcap = _next_pow2(max(emitcap, nm.max()))
+            cap_total = _next_pow2(max(cap_total, nh.sum()))
+        tot = int(nh.sum())
+        fpos = f_pos[:tot].cpu().numpy()
+        fid = f_id[:tot].cpu().numpy()
+        off = 0
+        for j, (si, start, _, _) in enumerate(batch):
+            if si < 0:
+                continue
+            n_acc, pos_parts, id_parts = acc.get(si, (0, [], []))
+            pos_parts.append(fpos[off:off + nh[j]] + start)
+            id_parts.append(fid[off:off + nh[j]])
+            acc[si] = (n_acc + int(nm[j]), pos_parts, id_parts)
+            off += nh[j]
+    for si, (n_min, pos_parts, id_parts) in acc.items():
+        results[si] = (n_min, np.concatenate(pos_parts).astype(np.int32),
+                       np.concatenate(id_parts).astype(np.int32))
+    return results
+
+
+def _seq_tensors(codes: np.ndarray, k: int, w: int, device):
+    """One sequence as the single-sequence kernel takes it: codes uint8
+    [1, (nb+1)*BLK], padded with N (4), and nvalid int32 [1]."""
+    L = len(codes)
+    n_valid = L - k - w + 2
+    need = (max(1, -(-n_valid // BLK)) + 1) * BLK
+    buf = np.full(need, 4, np.uint8)
+    buf[:min(L, need)] = codes[:need]
+    return (torch.from_numpy(buf[None, :]).to(device),
+            torch.tensor([n_valid], dtype=torch.int32, device=device))
+
+
+def _seq_minimizers(codes: np.ndarray, k: int, w: int, device):
+    """(key int64, pos int32) of the emitted windows of one sequence, on
+    the device, or None when it is shorter than one window."""
+    if not 1 <= k <= NARROW_MAX_K:
+        raise ValueError(f"the single-sequence kernel needs 1 <= k <= "
+                         f"{NARROW_MAX_K}, got k={k}")
+    if len(codes) < w + k - 1:
+        return None
+    key, pos, emit = sketch_seq(*_seq_tensors(codes, k, w, device), k, w)
+    return key[emit], pos[emit]
+
+
+def sketch_sequence(codes: np.ndarray, k: int, w: int, *, device):
+    """(hi uint32, lo uint32, pos int32) minimizers of one sequence that
+    may hold N (the port of pallas_sketch_sequence): the emitted windows
+    with consecutive equal keys removed, as the reference's caller does."""
+    out = _seq_minimizers(codes, k, w, device)
+    if out is None:
+        z = np.zeros(0, np.uint32)
+        return z, z.copy(), np.zeros(0, np.int32)
+    key, pos = (t.cpu().numpy() for t in out)
+    if len(key) > 1:
+        keep = np.ones(len(key), bool)
+        keep[1:] = key[1:] != key[:-1]
+        key, pos = key[keep], pos[keep]
+    return ((key >> 32).astype(np.uint32),
+            (key & UMAX32).astype(np.uint32), pos.astype(np.int32))
+
+
+def join_sequence(codes: np.ndarray, k: int, w: int, sp_hi, sp_lo, *,
+                  device):
+    """(n_minimizers, hit positions int32, hit spectrum ids int32) of one
+    sequence that may hold N against the sorted read spectrum (the port of
+    pallas_join_sequence): the single-sequence kernel, the emitted lanes
+    (sized by their exact count) and a sorted-key binary search."""
+    from phi_tpu_torch import state
+    from phi_tpu_torch.ops.search import pair_isin
+    out = _seq_minimizers(codes, k, w, device)
+    if out is None:
+        return _empty_hits()
+    key, pos = out
+    found, idx = pair_isin(state.spectrum_keys(sp_hi, sp_lo, device), key)
+    hit = found & (pos >= 0)
+    return (len(key), pos[hit].cpu().numpy().astype(np.int32),
+            idx[hit].cpu().numpy().astype(np.int32))

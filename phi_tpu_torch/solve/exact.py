@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from phi_tpu_torch.anchors.join import AnchorTables
-from phi_tpu.graph.pangenome import PangenomeGraph
+from phi_tpu_torch.graph.pangenome import PangenomeGraph
 from phi_tpu_torch.solve.prep import SolverTables
 
 

@@ -14,7 +14,7 @@ import dataclasses
 
 import numpy as np
 
-from phi_tpu.graph.pangenome import PangenomeGraph, ragged_arange
+from phi_tpu_torch.graph.pangenome import PangenomeGraph, ragged_arange
 from phi_tpu_torch.anchors.join import AnchorTables
 
 

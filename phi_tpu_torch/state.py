@@ -40,14 +40,19 @@ def cuckoo_tensors(ck, device):
             int(seed))
 
 
+def words_tensor(words, device) -> torch.Tensor:
+    """Packed 2-bit rows (uint32 [R, W]) as their int32 view."""
+    return _t(np.ascontiguousarray(words, np.uint32).view(np.int32),
+              torch.int32, device)
+
+
 def batch_tensors(words, nodes, nvalid, left, base_node, hap, device):
     """One packed join batch: words (uint32 [R, W], passed as its int32
     view), the node starts (int32 [R, S_cap] offsets for the v3 routes, the
     uint8 [R, row_lanes] dense plane for v2) in their own dtype, and the
     int32 per-row columns."""
-    words = np.ascontiguousarray(words, np.uint32).view(np.int32)
     nodes = torch.from_numpy(np.ascontiguousarray(nodes)).to(device)
-    return (_t(words, torch.int32, device), nodes,
+    return (words_tensor(words, device), nodes,
             _t(nvalid, torch.int32, device), _t(left, torch.int32, device),
             _t(base_node, torch.int32, device), _t(hap, torch.int32, device))
 

@@ -7,7 +7,8 @@ Builds (or reuses) the synthetic instance of the reference's configuration
 k, such as 35 for the wide rows3w route), runs the pipeline on cuda once
 cold and once warm, then once more under torch.profiler, and prints one
 JSON object:
-  - `wall_s`: the warm run's `timings["total"]`, unprofiled;
+  - `wall_s`: the warm run's `timings["total"]`, unprofiled, and
+    `timings`: that run's whole `timings` (the host phases);
   - `profiled_wall_s`: the same for the profiled run;
   - `busy_s`: the length of the union of the intervals of every kernel,
     copy and fill that ran on the card in the profiled run, so events that
@@ -98,15 +99,16 @@ def main(argv: list[str] | None = None) -> int:
     def run():
         r = run_pipeline(paths["gfa"], paths["reads"], out, opt, device=dev)
         torch.cuda.synchronize()
-        return r.timings["total"]
+        return r.timings
 
     run()                                     # cold: build, CUDA context
-    wall = run()
+    timings = run()
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        profiled = run()
-    res = summarize(device_events(prof), wall, profiled)
+        profiled = run()["total"]
+    res = summarize(device_events(prof), timings["total"], profiled)
+    res["timings"] = timings
     res["by_name"] = [dict(d, name=d["name"][:120])
                       for d in res["by_name"][:25]]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -13,6 +13,13 @@ from phi_tpu.graph import tensorize  # noqa: E402
 from phi_tpu.io.gfa import encode_seq, read_gfa  # noqa: E402
 from phi_tpu.sketch.minimizer import sketch_read_batch  # noqa: E402
 from phi_tpu_torch.anchors.device import join_anchors_device  # noqa: E402
+from phi_tpu_torch.graph.pangenome import tensorize as port_tensorize  # noqa: E402
+from phi_tpu_torch.io.gfa import read_gfa as port_read_gfa  # noqa: E402
+
+
+def _graphs(path):
+    """The same GFA as each package's own graph: (phi_tpu's, the port's)."""
+    return tensorize(read_gfa(path)), port_tensorize(port_read_gfa(path))
 
 
 def _instance(tmp_path, n_haps=6, length=9000, seed=0):
@@ -25,7 +32,7 @@ def _instance(tmp_path, n_haps=6, length=9000, seed=0):
     write_gfa(gfa_data, path=gfa_path)
     reads, _ = sample_reads(rng, hap_seqs[:2], coverage=1.5, read_len=120,
                             error_rate=0.002, recomb_breaks=[(4000, 1)])
-    return tensorize(read_gfa(gfa_path)), reads
+    return _graphs(gfa_path), reads
 
 
 def _spectrum(reads, k, w):
@@ -37,9 +44,10 @@ def _spectrum(reads, k, w):
     return sketch_read_batch(rc, k, w, ln)
 
 
-def _compare(graph, spectrum, k, w, threshold, sb):
+def _compare(graphs, spectrum, k, w, threshold, sb):
+    jgraph, graph = graphs
     seqs = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
-    want = jax_join(graph, seqs, k, w, spectrum[0], spectrum[1], threshold,
+    want = jax_join(jgraph, seqs, k, w, spectrum[0], spectrum[1], threshold,
                     rows_per_call=2, super_blocks=sb, interpret=True)
     assert want is not None
     got_min, got = join_anchors_device(
@@ -81,7 +89,7 @@ def test_device_anchors_zero_len_nodes(tmp_path):
         "L\ts2\t+\ts4\t+\t0M\nL\ts3\t+\ts4\t+\t0M\n"
         "W\tsamp\t1\tchr\t0\t45\t>s1>s2>s4\n"
         "W\tsamp\t2\tchr\t0\t40\t>s1>s3>s4\n")
-    graph = tensorize(read_gfa(str(gfa)))
+    graph = _graphs(str(gfa))
     k, w = 9, 4
     spectrum = _spectrum([seg_a + seg_b + seg_c, seg_a + seg_c], k, w)
     occ = _compare(graph, spectrum, k, w, 1.0, 1)
@@ -93,7 +101,7 @@ def test_n_walk_raises(tmp_path):
     gfa = tmp_path / "n.gfa"
     gfa.write_text("H\tVN:Z:1.1\nS\ts1\tACGTNACGTACGTTGCA\n"
                    "W\tsamp\t1\tchr\t0\t17\t>s1\n")
-    graph = tensorize(read_gfa(str(gfa)))
+    graph = port_tensorize(port_read_gfa(str(gfa)))
     seqs = [graph.walk_seq_codes(0)]
     sp = _spectrum(["ACGTACGTTGCA"], 5, 2)
     with pytest.raises(NotImplementedError, match="non-ACGT"):

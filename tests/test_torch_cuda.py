@@ -1,7 +1,8 @@
-"""Card tests of the port: the rows3, rows3w and rows2 CUDA kernels against
-their plain twins on the same CUDA tensors, at the main path's shape. They
-skip without a CUDA device. This file imports no jax, so it also runs where
-jax is absent:
+"""Card tests of the port: the rows3, rows3w, rows2, rows and seq CUDA
+kernels against their plain twins on the same CUDA tensors, at the main
+path's shape, and the v1 and single-sequence joins on the card against the
+same joins on the CPU. They skip without a CUDA device. This file imports
+no jax, so it also runs where jax is absent:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 """
@@ -75,3 +76,76 @@ def test_rows2_kernel_matches_twin_on_card():
     assert tk.sketch_rows2.launches == before + 1
     for a, b in zip(want, got):
         assert torch.equal(a, b)
+
+
+def _seq_with_n(seed, n):
+    """A/C/G/T with N runs, one across the first block boundary."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, n, dtype=np.uint8)
+    codes[tk.BLK - 20:tk.BLK + 15] = 4
+    for at in rng.integers(0, n - 100, 12):
+        codes[at:at + rng.integers(1, 60)] = 4
+    return codes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,w", [(31, 25), (21, 11)])
+def test_rows_kernel_matches_twin_on_card(k, w):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    codes, _, nvalid, left, _ = (a.cuda() for a in _inputs(k + 7,
+                                                           tk.SUPER_BLOCKS))
+    want = tk.sketch_rows_torch(codes, nvalid, left, k, w)
+    before = tk.sketch_rows.launches
+    got = tk.sketch_rows(codes, nvalid, left, k, w)
+    torch.cuda.synchronize()
+    assert tk.sketch_rows.launches == before + 1
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,w", [(31, 25), (15, 5)])
+def test_seq_kernel_matches_twin_on_card(k, w):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    codes, nvalid = tk._seq_tensors(_seq_with_n(k, 300_000), k, w, "cuda")
+    want = tk.sketch_seq_torch(codes, nvalid, k, w)
+    before = tk.sketch_seq.launches
+    got = tk.sketch_seq(codes, nvalid, k, w)
+    torch.cuda.synchronize()
+    assert tk.sketch_seq.launches == before + 1
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_joins_on_card_match_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(5)
+    seqs = [rng.integers(0, 4, n, dtype=np.uint8)
+            for n in (3 * tk.BLK + 500, 40_000, 30)]
+    seqs.append(_seq_with_n(6, 20_000))
+    keys = np.unique(rng.integers(0, 1 << 62, 3000, dtype=np.int64))
+    # half the spectrum from the sequences' own minimizers, so there are hits
+    own = tk.sketch_sequence(seqs[0], 21, 11, device="cpu")
+    own = (own[0].astype(np.int64) << 32) | own[1]
+    keys = np.unique(np.concatenate([keys, own[::2]]))
+    sp_hi = (keys >> 32).astype(np.uint32)
+    sp_lo = (keys & 0xFFFFFFFF).astype(np.uint32)
+    kw = dict(rows_per_call=2, super_blocks=2)
+    want = tk.join_many(seqs, 21, 11, sp_hi, sp_lo, device="cpu", **kw)
+    got = tk.join_many(seqs, 21, 11, sp_hi, sp_lo, device="cuda", **kw)
+    assert got[3] is None and want[3] is None
+    for a, b in zip(want[:3], got[:3]):
+        assert a[0] == b[0]
+        np.testing.assert_array_equal(a[1], b[1])
+        np.testing.assert_array_equal(a[2], b[2])
+    assert len(want[0][1]) > 0
+    for s in (seqs[0], seqs[3]):
+        a = tk.join_sequence(s, 21, 11, sp_hi, sp_lo, device="cpu")
+        b = tk.join_sequence(s, 21, 11, sp_hi, sp_lo, device="cuda")
+        assert a[0] == b[0]
+        np.testing.assert_array_equal(a[1], b[1])
+        np.testing.assert_array_equal(a[2], b[2])

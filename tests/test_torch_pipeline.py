@@ -17,9 +17,10 @@ import torch
 
 pytest.importorskip("jax")
 
-from phi_tpu.config import Options  # noqa: E402
+from phi_tpu.config import Options as JaxOptions  # noqa: E402
 from phi_tpu.io.build import build_gfa_data  # noqa: E402
 from phi_tpu.io.gfa import write_gfa  # noqa: E402
+from phi_tpu_torch.config import Options  # noqa: E402
 from phi_tpu_torch.pipeline import gap_tol, run_pipeline  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -126,17 +127,18 @@ def jax_device_path(monkeypatch):
     return jax_run
 
 
-@pytest.mark.parametrize("case,opt", [
-    (_mosaic, Options(recombination=5.0)),
-    (_refinement, Options(k=4, w=2, recombination=1.0, lagrangian_rounds=6)),
+@pytest.mark.parametrize("case,kw", [
+    (_mosaic, dict(recombination=5.0)),
+    (_refinement, dict(k=4, w=2, recombination=1.0, lagrangian_rounds=6)),
     (lambda p: _refinement(p, seed=19),
-     Options(k=4, w=2, recombination=1.0, lagrangian_rounds=6)),
-    (_paralog, Options(k=8, w=3, recombination=100.0)),
+     dict(k=4, w=2, recombination=1.0, lagrangian_rounds=6)),
+    (_paralog, dict(k=8, w=3, recombination=100.0)),
 ], ids=["mosaic", "refinement", "refinement_open_gap", "paralog"])
-def test_pipeline_matches_jax(tmp_path, jax_device_path, case, opt):
+def test_pipeline_matches_jax(tmp_path, jax_device_path, case, kw):
     gfa_path, reads_path = case(tmp_path)
     want = jax_device_path(gfa_path, reads_path, str(tmp_path / "jax.fa"),
-                           opt)
+                           JaxOptions(**kw))
+    opt = Options(**kw)
     got = run_pipeline(gfa_path, reads_path, str(tmp_path / "torch.fa"),
                        opt, device="cpu")
     with open(tmp_path / "jax.fa", "rb") as a, \
@@ -170,6 +172,8 @@ def test_branch_and_bound_matches_jax(tmp_path, case, k, w, R):
     from phi_tpu.solve.bnb import branch_and_bound as jax_bnb
     from phi_tpu.solve.prep import solver_layers
     from phi_tpu_torch.anchors.join import AnchorTables
+    from phi_tpu_torch.graph.pangenome import tensorize as port_tensorize
+    from phi_tpu_torch.io.gfa import read_gfa as port_read_gfa
     from phi_tpu_torch.solve.bnb import branch_and_bound
     gfa_path, reads_path = case(tmp_path)
     graph = tensorize(read_gfa(gfa_path))
@@ -179,9 +183,9 @@ def test_branch_and_bound_matches_jax(tmp_path, case, k, w, R):
                                  np.array([len(read)], np.int32))
     anchors = build_anchor_tables(graph, k, sketch_haplotypes(graph, k, w),
                                   spectrum, 1.0)
-    opt = Options(k=k, w=w, recombination=R, lagrangian_rounds=0)
+    kw = dict(k=k, w=w, recombination=R, lagrangian_rounds=0)
     layers = solver_layers(graph, k)
-    want, want_bound = jax_bnb(graph, anchors, opt, gap_tol(R),
+    want, want_bound = jax_bnb(graph, anchors, JaxOptions(**kw), gap_tol(R),
                                layers=layers)
     port_anchors = AnchorTables(
         occ_hap=anchors.occ_hap, occ_start=anchors.occ_start,
@@ -191,9 +195,9 @@ def test_branch_and_bound_matches_jax(tmp_path, case, k, w, R):
         filtered_kmers=anchors.filtered_kmers,
         per_hap_minimizers=anchors.per_hap_minimizers,
         per_hap_anchors=anchors.per_hap_anchors)
-    got, got_bound = branch_and_bound(graph, port_anchors, opt, gap_tol(R),
-                                      layers=layers,
-                                      device=torch.device("cpu"))
+    got, got_bound = branch_and_bound(
+        port_tensorize(port_read_gfa(gfa_path)), port_anchors, Options(**kw),
+        gap_tol(R), layers=layers, device=torch.device("cpu"))
     assert got.segments == want.segments
     assert got.true_objective == pytest.approx(want.true_objective, abs=1e-3)
     assert got_bound == pytest.approx(want_bound, abs=1e-3)
@@ -228,19 +232,28 @@ def test_cli_matches_jax_cli(tmp_path):
 
 
 def test_port_run_loads_no_jax(tmp_path):
-    """conftest imports jax into this process, so the runs (the default k
-    and the wide k = 35) are a child."""
+    """conftest imports jax into this process, so the runs (the default k,
+    the wide k = 35, --save-index and --load-index) are a child, which then
+    holds neither jax nor any module of phi_tpu."""
     gfa_path, reads_path = _mosaic(tmp_path)
+    idx = str(tmp_path / "index.npz")
     code = ("import sys\n"
             "import phi_tpu_torch.eval, phi_tpu_torch.trace\n"
             "from phi_tpu_torch.cli import main\n"
-            f"args = ['-g', {gfa_path!r}, '-r', {reads_path!r}, '-o', "
-            f"{str(tmp_path / 'out.fa')!r}, '--device', 'cpu']\n"
-            "rc = main(args) + main(args + ['-k', '35'])\n"
-            "print('rc', rc, 'jax_loaded', 'jax' in sys.modules)\n")
+            f"g = ['-g', {gfa_path!r}, '-o', {str(tmp_path / 'out.fa')!r}, "
+            "'--device', 'cpu']\n"
+            f"args = g + ['-r', {reads_path!r}]\n"
+            "rc = (main(args) + main(args + ['-k', '35'])\n"
+            f"      + main(args + ['--save-index', {idx!r}])\n"
+            f"      + main(g + ['--load-index', {idx!r}, '-R', '2']))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'phi_tpu'))\n"
+            "print('rc', rc, 'loaded', bad)\n")
     res = _run(["-c", code])
     assert res.returncode == 0, res.stderr[-2000:]
-    assert "rc 0 jax_loaded False" in res.stdout
+    assert "rc 0 loaded []" in res.stdout, res.stdout[-2000:]
+    assert "Index saved to" in res.stderr
+    assert "Loaded index from" in res.stderr
 
 
 def test_cli_cuda_without_gpu_exits_1(tmp_path, capsys):
@@ -255,9 +268,8 @@ def test_cli_cuda_without_gpu_exits_1(tmp_path, capsys):
     assert not (tmp_path / "out.fa").exists()
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--save-index", "x.npz"],
-                                  ["--load-index", "x.npz"],
-                                  ["--race", "off"], ["-d", "1"]])
+@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--race", "off"],
+                                  ["-d", "1"]])
 def test_cli_rejects_unported_flags(tmp_path, capsys, flag):
     from phi_tpu_torch.cli import main
     rc = main(["-g", "g.gfa", "-r", "r.fa", "-o", str(tmp_path / "o.fa"),

@@ -291,18 +291,18 @@ def test_v2_cuckoo_route_matches_jax(tmp_path, monkeypatch):
 
 def test_pipeline_v2_mixed_matches_jax(tmp_path, jax_device_path,
                                        small_cuckoo_limit, monkeypatch):
-    from phi_tpu.config import Options
+    from phi_tpu.config import Options as JaxOptions
     from phi_tpu_torch.anchors import device as tdev
+    from phi_tpu_torch.config import Options
     from phi_tpu_torch.pipeline import run_pipeline
     monkeypatch.setattr(tdev, "ROWS", R)
     monkeypatch.setattr(tdev, "SUPER_BLOCKS", SB)
     gfa_path, reads_path = _mosaic(tmp_path)
-    opt = Options(recombination=5.0)
     want = jax_device_path(gfa_path, reads_path, str(tmp_path / "jax.fa"),
-                           opt)
+                           JaxOptions(recombination=5.0))
     calls = _spy(monkeypatch, "join_rows2")
     got = run_pipeline(gfa_path, reads_path, str(tmp_path / "torch.fa"),
-                       opt, device="cpu")
+                       Options(recombination=5.0), device="cpu")
     assert calls
     with open(tmp_path / "jax.fa", "rb") as a, \
             open(tmp_path / "torch.fa", "rb") as b:
@@ -320,7 +320,7 @@ def test_pipeline_v2_mixed_matches_jax(tmp_path, jax_device_path,
 def test_v2_emit_overflow_names_its_condition(tmp_path, small_cuckoo_limit,
                                               monkeypatch):
     from phi_tpu_torch.anchors import device as tdev
-    graph, reads = _graph_instance(tmp_path)
+    (_, graph), reads = _graph_instance(tmp_path)
     seqs = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
     sp = _spectrum(reads, 21, 11)
     monkeypatch.setattr(tdev, "emit_cap", lambda w, sb: 64)

@@ -19,7 +19,7 @@ from phi_tpu_torch.anchors.device import (join_anchors_device,  # noqa: E402
                                           pack_batch)
 from phi_tpu_torch.ops.search import make_cuckoo  # noqa: E402
 from phi_tpu_torch.sketch import kernels as tk  # noqa: E402
-from test_torch_anchors import _compare  # noqa: E402
+from test_torch_anchors import _compare, _graphs  # noqa: E402
 from test_torch_anchors import _instance as _graph_instance  # noqa: E402
 from test_torch_kernels import (ROW_LANES, SB, R, _batches,  # noqa: E402
                                 _instance, _ref_codes, _ref_packed)
@@ -216,15 +216,16 @@ def test_wide_route_matches_jax(tmp_path, monkeypatch):
 
 
 def test_pipeline_k35_matches_jax(tmp_path, jax_device_path, monkeypatch):
-    from phi_tpu.config import Options
+    from phi_tpu.config import Options as JaxOptions
+    from phi_tpu_torch.config import Options
     from phi_tpu_torch.pipeline import run_pipeline
     gfa_path, reads_path = _mosaic(tmp_path)
-    opt = Options(k=35, w=25, recombination=5.0)
+    opt = dict(k=35, w=25, recombination=5.0)
     want = jax_device_path(gfa_path, reads_path, str(tmp_path / "jax.fa"),
-                           opt)
+                           JaxOptions(**opt))
     before = tk.sketch_rows3w.launches
     got = run_pipeline(gfa_path, reads_path, str(tmp_path / "torch.fa"),
-                       opt, device="cpu")
+                       Options(**opt), device="cpu")
     assert tk.sketch_rows3w.launches == before  # CPU tensors: the twin
     with open(tmp_path / "jax.fa", "rb") as a, \
             open(tmp_path / "torch.fa", "rb") as b:
@@ -244,8 +245,7 @@ def _dense_chop(tmp_path):
     """A 3-haplotype graph chopped into 1-3 bp nodes: more than one node
     start per 4 bases, so the reference leaves v3 for the dense plane."""
     from phi_tpu.eval.synth import sample_reads, synth_pangenome
-    from phi_tpu.graph import tensorize
-    from phi_tpu.io.gfa import read_gfa, write_gfa
+    from phi_tpu.io.gfa import write_gfa
     rng = np.random.default_rng(5)
     gfa_data, hap_seqs = synth_pangenome(rng, length=12_000, n_haps=3,
                                          max_node_len=3)
@@ -253,14 +253,14 @@ def _dense_chop(tmp_path):
     write_gfa(gfa_data, path=path)
     reads, _ = sample_reads(rng, hap_seqs, coverage=2.0, read_len=120,
                             error_rate=0.002)
-    return tensorize(read_gfa(path)), reads
+    return _graphs(path), reads
 
 
 def test_wide_refusals_name_their_condition(tmp_path, monkeypatch):
     """k > 31 has no v2 kernel: an oversized spectrum or a dense chop take
     the reference's host hit path, which the port does not have yet."""
     import phi_tpu_torch.ops.search as ts
-    graph, reads = _dense_chop(tmp_path)
+    (_, graph), reads = _dense_chop(tmp_path)
     seqs = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
     sp = _spectrum_wide(reads, 35, 9)
     with pytest.raises(NotImplementedError, match="dense node chop"):
@@ -274,7 +274,7 @@ def test_wide_refusals_name_their_condition(tmp_path, monkeypatch):
 
 def test_overflow_refusals_name_their_condition(tmp_path, monkeypatch):
     import phi_tpu_torch.anchors.device as tdev
-    graph, reads = _graph_instance(tmp_path)
+    (_, graph), reads = _graph_instance(tmp_path)
     seqs = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
     sp = _spectrum_wide(reads, 35, 9)
     monkeypatch.setattr(tdev, "block_cap", lambda w: 16)
