@@ -6,14 +6,26 @@
 Phases, in order; any failure exits non-zero:
   0. the native host library, then the card (nvidia-smi name and power
      limit) and the torch/CUDA versions; no CUDA device -> exit 1;
-  1. build the rows kernel family (rows3, rows3w, rows2, rows, seq) from
-     phi_tpu_torch/csrc/rows.cu (into phi_tpu_torch/_build/);
+  1. build the rows kernel family (rows3, rows3w, rows2, rows, seq, and
+     the direct-scan rows3w_ref and rows2_ref) from
+     phi_tpu_torch/csrc/rows.cu (into phi_tpu_torch/_build/), and beside
+     it, with its nvcc started at the same time, the stage cuts of the
+     tiled rows2 and rows3w from csrc/rows_stages.cu; ptxas's registers,
+     shared memory and spills of each of the seven, and its resident
+     blocks per SM; a spill fails;
   2. each kernel against its plain torch twin on the card at the production
      shape (R=8, SB=256): rows3 at k=31 w=25 C=2048, plus (k, w) = (21, 11)
      and a cnt > C case; rows3w at k=35 w=25 and k=63 w=11; rows2 and rows
      at k=31 w=25 (rows also at k=21 w=11); seq at k=31 w=25 on one
      5,000,000-base sequence with N runs: outputs array-equal; medians of
-     10 timed runs each, and each kernel's bound (bound_ms below);
+     10 CUDA-event timings of one call each (cuda_ms), and each kernel's
+     bound (bound_ms below). rows2 and rows3w (the tiled design) are also
+     array-equal to their direct-scan entry points and timed against them
+     in turns (old, new, new, old, 10 timings of one call each; the same
+     with 5 calls per timing logged beside), their time split by stage
+     (stage_split), and both are held against their twins and the direct
+     scan on edge rows (ties, nvalid at tile edges, 0 and 1 valid lanes,
+     w = 1, a power of two, and 33 and 34, k + w - 2 = 128, cnt > C);
   3. the whole path on a small instance (4 haplotypes x 200 kbp) on cuda
      and on cpu: byte-identical FASTA, same report, bound and objective;
   4. the main path at size (49 haplotypes x 5 Mbp, 30 bp nodes, 1x reads,
@@ -63,8 +75,16 @@ def fail(msg: str) -> int:
     return 1
 
 
-def cuda_ms(fn, reps: int = 10) -> float:
-    """Median of `reps` CUDA-event timings of fn() (after one warm-up)."""
+def median(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def cuda_times(fn, reps: int = 10, inner: int = 1) -> list[float]:
+    """`reps` CUDA-event timings of fn() in ms, after one warm-up. Each is
+    `inner` calls between two events, over `inner`: 1 (every kernel time
+    of the kernels line and of PERF.md) counts the wrapper's host time of
+    the call; 5 hides it behind the card's queue."""
     import torch
     fn()
     times = []
@@ -72,17 +92,23 @@ def cuda_ms(fn, reps: int = 10) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
+        times.append(a.elapsed_time(b) / inner)
+    return times
 
 
-def rows3_inputs(seed: int, sb: int, rows: int = 8):
+def cuda_ms(fn) -> float:
+    """Median of 10 CUDA-event timings of one call of fn()."""
+    return median(cuda_times(fn))
+
+
+def rows_inputs(seed: int, sb: int, rows: int = 8):
     """Random A/C/G/T rows with a random 1-30 bp node chop, on the card:
-    full, partial, short and empty rows, with and without a left base."""
+    full, partial, short and empty rows, with and without a left base.
+    Returns (codes, nd, nvalid, left, node_off)."""
     import numpy as np
     import torch
     from phi_tpu_torch.sketch import kernels as tk
@@ -101,11 +127,162 @@ def rows3_inputs(seed: int, sb: int, rows: int = 8):
     left = np.where(rng.random(rows) < 0.5, rng.integers(0, 4, rows), -1)
     dev = torch.device("cuda")
     nd = tk.delta_plane(torch.from_numpy(starts).to(dev), row_lanes)
-    base = torch.from_numpy(rng.integers(0, 1000, rows).astype(np.int32)).to(dev)
+    base = torch.from_numpy(rng.integers(0, 1000, rows).astype(np.int32))
     return (torch.from_numpy(codes).to(dev), nd,
             torch.from_numpy(nvalid).to(dev),
             torch.from_numpy(left.astype(np.int32)).to(dev),
-            tk.block_node_offsets(nd, base, sb))
+            tk.block_node_offsets(nd, base.to(dev), sb))
+
+
+def edge_inputs(seed: int, sb: int = 4):
+    """16 rows at the tiled design's edges, on the card: nvalid 0, 1, at
+    every 1024-lane tile edge of a block, 8191, 8193, one block and a tile
+    edge plus one, full; a poly-A row and a period-2 row (every key ties);
+    left bases present and absent; node starts of 1-3 with a few saturated
+    at 255. Returns (codes, nd, nvalid, left, node_off)."""
+    import numpy as np
+    import torch
+    from phi_tpu_torch.sketch import kernels as tk
+    rng = np.random.default_rng(seed)
+    L = (sb + 1) * tk.BLK
+    full = sb * tk.BLK
+    nvalid = [0, 1, 1024, 2048, 3072, 4096, 5120, 6144, 7168, 8191, 8192,
+              8193, tk.BLK + 1025, full - 1, full, full - 77]
+    codes = rng.integers(0, 4, (16, L), dtype=np.uint8)
+    codes[14] = 0
+    codes[15] = np.resize(np.array([0, 1], np.uint8), L)
+    left = np.where(np.arange(16) % 3 == 0, -1, rng.integers(0, 4, 16))
+    nd = (rng.random((16, L)) < 0.1) * rng.integers(1, 4, (16, L))
+    nd[rng.random((16, L)) < 0.001] = 255
+    nd[:, 0] = 0
+    dev = torch.device("cuda")
+    nd = torch.from_numpy(nd.astype(np.uint8)).to(dev)
+    base = torch.from_numpy(rng.integers(0, 99, 16).astype(np.int32))
+    return (torch.from_numpy(codes).to(dev), nd,
+            torch.tensor(nvalid, dtype=torch.int32, device=dev),
+            torch.from_numpy(left.astype(np.int32)).to(dev),
+            tk.block_node_offsets(nd, base.to(dev), sb))
+
+
+def ptxas_report(log: str) -> dict:
+    """ptxas's lines per kernel from nvcc -Xptxas -v output: {name: (used
+    line, spill line)}, the name recovered from the mangled template
+    arguments (rows_kernel<K, COMPACT, POS, NCODE, THREADS>,
+    tiled_kernel<K, COMPACT>)."""
+    import re
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            mangled = m.group(1)
+            args = re.search(r"(tiled|rows)_kernelI(.*)EEv", mangled)
+            name = mangled
+            if args:
+                wide = "Key128" in args.group(2)
+                flags = [f == "1" for f in re.findall(r"Lb([01])E",
+                                                      args.group(2))]
+                if args.group(1) == "tiled":
+                    name = "rows3w" if wide else "rows2"
+                elif wide:
+                    name = "rows3w_ref"
+                elif flags[1]:
+                    name = "seq" if flags[2] else "rows"
+                else:
+                    name = "rows3" if flags[0] else "rows2_ref"
+            out[name] = ["", ""]
+        elif name and "spill" in ln:
+            out[name][1] = ln.strip()
+        elif name and "Used" in ln:
+            out[name][0] = ln.split(":", 1)[-1].strip()
+    return out
+
+
+def spills(line: str) -> bool:
+    import re
+    return any(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+
+
+STAGE_CUTS = {1: "pack", 2: "keys and node prefix", 3: "window minimum"}
+
+
+def start_stage_build():
+    """Start nvcc on csrc/rows_stages.cu (the tiled kernels cut after each
+    stage) into a library of its own; returns (path, process)."""
+    from phi_tpu_torch.sketch import kernels as tk
+    os.makedirs(BUILD, exist_ok=True)
+    so = os.path.join(BUILD, "librows-stages.so")
+    src = os.path.join(ROOT, "phi_tpu_torch", "csrc", "rows_stages.cu")
+    cmd = [tk._nvcc()] + tk._NVCC_FLAGS + ["-o", so, src]
+    return so, subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                stderr=subprocess.PIPE, text=True)
+
+
+def stage_library(build):
+    """The stage-cut library once its build has ended; raises if nvcc
+    failed."""
+    import ctypes
+    so, proc = build
+    err = proc.communicate()[1]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc (rows_stages.cu) failed:\n{err}")
+    lib = ctypes.CDLL(so)
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    inputs = [vp, vp, vp, vp, vp, cl, ci, ci, ci, ci]
+    lib.phi_rows2_cut_launch.argtypes = inputs + [ci, vp, vp, vp, vp]
+    lib.phi_rows3w_cut_launch.argtypes = inputs + [ci, ci, vp, vp, vp, vp,
+                                                   vp]
+    for fn in (lib.phi_rows2_cut_launch, lib.phi_rows3w_cut_launch):
+        fn.restype = ci
+    return lib
+
+
+def stage_split(lib, name: str, args, *params) -> dict:
+    """The tiled kernel `name` (rows2 or rows3w), its three stage cuts and
+    its direct-scan entry point, each launched on preallocated outputs,
+    timed in turns (full, 1, 2, 3, ref, ref, 3, 2, 1, full; 10 samples of
+    5 calls back to back each, so the stages' device time is not blurred
+    by the host's). Returns the medians of 20 in ms and each stage's time
+    (a cut's median minus the cut's before it)."""
+    import torch
+    from phi_tpu_torch.sketch import kernels as tk
+    codes, _, _, _, node_off = args
+    R, SB = node_off.shape
+    k, w, ints = params[0], params[1], params[2:]
+    cuda = dict(device=codes.device)
+    if name == "rows3w":
+        n = SB * params[2]
+        outs = tuple(torch.empty((R, n), dtype=torch.int64, **cuda)
+                     for _ in range(3)) + (
+            torch.empty((R, SB), dtype=torch.int32, **cuda),)
+    else:
+        n = SB * tk.BLK
+        outs = (torch.empty((R, n), dtype=torch.int64, **cuda),
+                torch.empty((R, n), dtype=torch.int64, **cuda),
+                torch.empty((R, n), dtype=torch.bool, **cuda))
+    runs = {"full": lambda: tk._launch(name, args, SB, k, w, ints, outs),
+            "ref": lambda: tk._launch(f"{name}_ref", args, SB, k, w, ints,
+                                      outs)}
+    for cut in STAGE_CUTS:
+        runs[cut] = (lambda c: lambda: tk._launch(
+            f"{name}_cut", args, SB, k, w, ints + (c,), outs, lib))(cut)
+    order = ["full", *STAGE_CUTS, "ref"]
+    times = {key: [] for key in order}
+    for key in order + order[::-1]:
+        times[key] += cuda_times(runs[key], inner=5)
+    med = {str(key): median(t) for key, t in times.items()}
+    cuts = [0.0] + [med[str(c)] for c in STAGE_CUTS] + [med["full"]]
+    stages = list(STAGE_CUTS.values()) + ["emit and output"]
+    return {"ms": med, "stage_ms": {s: cuts[i + 1] - cuts[i]
+                                    for i, s in enumerate(stages)}}
+
+
+def same_outputs(label: str, want, got) -> None:
+    """Raise unless two kernels' outputs are array-equal."""
+    import torch
+    for i, (a, b) in enumerate(zip(want, got)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label} output {i} differs at "
+                                 f"{int((a != b).sum())} entries")
 
 
 def compare(name: str, args, *params) -> int:
@@ -326,9 +503,18 @@ def main() -> int:
     # --- phase 1: build ---
     from phi_tpu_torch.sketch import kernels as tk
     t0 = time.time()
+    stage_build = start_stage_build()
     tk.build_rows()
-    log(f"rows kernels ({', '.join(KERNELS)}) built in "
-        f"{time.time() - t0:.3f} s")
+    stage_lib = stage_library(stage_build)
+    log(f"rows kernels ({', '.join(KERNELS)}, rows3w_ref, rows2_ref) and "
+        f"their stage cuts built in {time.time() - t0:.3f} s")
+    ptxas = ptxas_report(tk.build_log())
+    for n in KERNELS + ("rows3w_ref", "rows2_ref"):
+        used, spill = ptxas.get(n, ("not found", ""))
+        log(f"ptxas {n}: {used}; {spill}; {tk.occupancy(n)} resident "
+            f"blocks per SM")
+        if not used or spills(spill):
+            return fail(f"ptxas: {n} spills registers or has no report")
 
     # --- phase 2: each kernel vs its twin at the production shape ---
     sb = tk.SUPER_BLOCKS
@@ -347,13 +533,48 @@ def main() -> int:
         bound[name] = bound_ms(name, args, kern(*args, *params), params[1])
         log(f"{name} {params} codes {tuple(args[0].shape)}: equal to twin; "
             f"kernel {ms[name]:.4f} ms, twin {plain_ms[name]:.4f} ms (median "
-            f"of 10, {card}); bound {bound[name][0]:.4f} ms "
+            f"of 10 samples, {card}); bound {bound[name][0]:.4f} ms "
             f"({bound[name][1]}), {bound[name][0] / ms[name]:.1%} reached")
 
-    args = rows3_inputs(1, sb)
+    def against_ref(name, args, *params):
+        """The tiled kernel against the twin and the direct scan."""
+        check(name, args, *params)
+        same_outputs(f"{name} vs {name}_ref {params}",
+                     getattr(tk, f"sketch_{name}_ref")(*args, *params),
+                     getattr(tk, f"sketch_{name}")(*args, *params))
+
+    def turns(name, args, *params):
+        """The tiled design and the direct scan in turns: old, new, new,
+        old, 10 events of one call each; ms[name] is the tiled design's
+        median. The same in turns with 5 calls per pair of events is
+        logged beside, then the stage split."""
+        timed(name, args, *params)
+        new = getattr(tk, f"sketch_{name}")
+        old = getattr(tk, f"sketch_{name}_ref")
+        same_outputs(f"{name} vs {name}_ref {params}", old(*args, *params),
+                     new(*args, *params))
+        b = bound[name][0]
+        for inner in (1, 5):
+            t_old = cuda_times(lambda: old(*args, *params), inner=inner)
+            t_new = cuda_times(lambda: new(*args, *params), inner=inner)
+            t_new += cuda_times(lambda: new(*args, *params), inner=inner)
+            t_old += cuda_times(lambda: old(*args, *params), inner=inner)
+            m_new, m_old = median(t_new), median(t_old)
+            if inner == 1:
+                ms[name], ref_ms[name] = m_new, m_old
+            log(f"{name} {params}: tiled {m_new:.4f} ms ({b / m_new:.1%} of "
+                f"bound), direct scan {m_old:.4f} ms ({b / m_old:.1%}); "
+                f"speedup {m_old / m_new:.2f}x (medians of 20 in turns, "
+                f"{inner} call(s) per pair of events, {card})")
+        split = stage_split(stage_lib, name, args, *params)
+        log(f"{name} {params} stage split (ms, medians of 20 in turns, 5 "
+            f"calls per pair of events, {card}): {json.dumps(split)}")
+
+    ref_ms = {}
+    args = rows_inputs(1, sb)
     timed("rows3", args, 31, 25, tk.block_cap(25))
-    timed("rows3w", args, 35, 25, tk.block_cap(25))
-    timed("rows2", args, 31, 25)
+    turns("rows3w", args, 35, 25, tk.block_cap(25))
+    turns("rows2", args, 31, 25)
     pos_args = (args[0], args[2], args[3])
     timed("rows", pos_args, 31, 25)
     check("rows", pos_args, 21, 11)
@@ -363,7 +584,7 @@ def main() -> int:
         seq_with_n(rng.integers(0, 4, 5_000_000, dtype=np.uint8), rng),
         31, 25, dev)
     timed("seq", seq_args, 31, 25)
-    args = rows3_inputs(2, sb)
+    args = rows_inputs(2, sb)
     check("rows3", args, 21, 11, tk.block_cap(11))
     check("rows3", args, 21, 11, 256)
     check("rows3w", args, 63, 11, tk.block_cap(11))
@@ -372,6 +593,19 @@ def main() -> int:
         return fail("the cnt > C case did not overflow C")
     log(f"rows3 k=21 w=11 (C={tk.block_cap(11)} and C=256, max cnt "
         f"{int(cnt.max())}) and rows3w k=63 w=11: equal to twin")
+    edge = edge_inputs(3)
+    for k, w in ((31, 25), (31, 99), (21, 1), (15, 16), (20, 33), (20, 34)):
+        against_ref("rows2", edge, k, w)
+    for k, w, C in ((35, 25, tk.block_cap(25)), (63, 67, tk.block_cap(67)),
+                    (40, 1, tk.BLK), (32, 11, 64), (40, 34, tk.block_cap(34))):
+        against_ref("rows3w", edge, k, w, C)
+    cnt = tk.sketch_rows3w(*edge, 32, 11, 64)[3]
+    if not bool((cnt > 64).any()):
+        return fail("the rows3w cnt > C edge case did not overflow C")
+    log("rows2 and rows3w equal to twin and to the direct scan on the edge "
+        "rows (k, w) = (31, 25), (31, 99), (21, 1), (15, 16), (20, 33), "
+        "(20, 34); (35, 25), (63, 67), (40, 1), (32, 11) with C = 64, "
+        "(40, 34)")
 
     # --- phase 3: small instance, cuda against cpu ---
     from phi_tpu_torch.eval import build_instance

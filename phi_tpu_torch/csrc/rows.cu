@@ -27,34 +27,73 @@
 // What bounds it. Per base it reads 2 bits of sequence (one byte after the
 // unpack) and, for the interval variants, one byte of the node-start plane;
 // rows3/rows3w write ~24-40 B per emitted minimizer (~2.36/(w+1) of the
-// lanes), rows2 17 B per lane and rows/seq 13 B per lane, all far below the
-// card's memory bandwidth. The work is integer ALU: building a 2k-bit
-// canonical key per lane (k steps) and the window-of-w minimum (w compares
-// per lane, twice as many word compares for rows3w).
+// lanes), rows2 17 B per lane and rows/seq 13 B per lane. Against the
+// card's 3.35 TB/s and its INT32 rate, the full-lane variants and rows3 are
+// bound by those bytes and rows3w, whose 126-bit key doubles the key and
+// compare work, by its operations: a rolling key (O(1) per lane) and
+// log2(w) + 1 doubling steps of a tuple minimum.
 //
-// Design. One CUDA block per (row, 8192-lane block); blocks are independent,
-// so nothing is carried between them the way the TPU grid carries its dedup
-// and node-count state in SMEM:
+// Both designs run one CUDA block per (row, 8192-lane block); blocks are
+// independent, so nothing is carried between them the way the TPU grid
+// carries its dedup and node-count state in SMEM:
 //   * the previous window of lane 0 is recomputed from one base to the left
 //     (the previous block's last lane, or the host-supplied base at
 //     start-1 for a row that continues a walk; -1 when it does not);
 //   * the node-count base of the block comes in as node_off[row, block]
 //     (base_node + exclusive prefix of per-block node-start totals), and the
-//     block scans its own node-start plane;
-//   * the compaction is a block-wide exclusive scan of per-thread emit
-//     counts (warp shuffles, then shared memory); each thread owns LPT
-//     consecutive lanes, so slot order is lane order (stable);
-//   * the full-lane variants keep the per-thread emit masks in shared
-//     memory and write their outputs in a second, coalesced pass.
-// Codes, the node prefix and the k-mer keys of the block plus its halo live
-// in shared memory: ~108 KB with 8-byte keys (two blocks of 256 threads per
-// SM; ~75 KB for rows/seq, which hold no node prefix), ~175 KB with
-// rows3w's 16-byte keys (one block per SM, so rows3w runs 512 threads a
-// block). The window minimum is the direct O(w) scan per lane, and emitted
-// lanes recompute theirs when they write: simple and exact first, speed is
-// later work.
+//     block scans its own node-start plane.
+//
+// The direct-scan design (rows_kernel: rows3, rows, seq, and rows2 and
+// rows3w under the entry points phi_rows2_ref_launch and
+// phi_rows3w_ref_launch, which only the card checks call). Codes, the node
+// prefix and the k-mer keys of the whole block plus its halo live in shared
+// memory: ~108 KB with 8-byte keys (two blocks of 256 threads per SM; ~75 KB
+// for rows/seq, which hold no node prefix), ~175 KB with 16-byte keys (one
+// block of 512 threads per SM). Each key is built in k steps; each thread
+// owns LPT consecutive lanes and runs the direct O(w) window scan for each
+// (32 threads of a warp read keys LPT lanes apart: a 16-way or 8-way bank
+// conflict on every load), and emitted lanes scan again when they write.
+// The compaction is a block-wide exclusive scan of per-thread emit counts;
+// the full-lane variants keep per-thread emit masks in shared memory and
+// write in a second, coalesced pass.
+//
+// The tiled design (tiled_kernel: rows2 and rows3w) takes the TPU kernel's
+// algorithm and lays it out for warps. The block walks its 8192 lanes in
+// tiles of TILE = 1024 lanes, each with a right halo of k + w - 2 lanes;
+// consecutive lanes sit on consecutive threads at every stage, so no warp
+// reads shared memory at a conflicting stride:
+//   * the block's codes (lanes -1 .. 8383) are packed once, 2 bits a base,
+//     into a big-endian stream and a little-endian stream of complemented
+//     bases (4 KB; one thread per 32-base word, from two 16-byte loads); a
+//     lane's forward and reverse-complement keys are funnel shifts of two
+//     (k <= 31) or three (k > 31) words of each, O(1) per lane;
+//   * the window minimum is the tuple (key, lane) minimum with ties to the
+//     rightmost lane, by log-doubling (floor(log2 w) steps, then one
+//     combine of two overlapping windows); the order is total, so this
+//     selects what the direct scan selects, once per lane;
+//   * the node prefix is a block-wide scan per tile, carried from tile to
+//     tile as a running sum;
+//   * emit flags are computed in parallel, one lane per thread, from the
+//     selections of lanes p and p - 1 (lane P0 - 1 of a tile is one more
+//     window of the tile, so no selection is carried);
+//   * rows2 writes full lanes, coalesced; rows3w compacts in lane order, a
+//     __ballot_sync and __popc per warp and round, one warp's scan of the
+//     tile's 32 warp counts, and a running block offset.
+// Shared memory is ~31 KB (8-byte keys) and ~49 KB (16-byte keys): with
+// __launch_bounds__(256, 4) at least four blocks of 256 threads fit on an
+// SM for both. What keeps it from its bound is the shared-memory traffic of
+// the doubling passes (each key and entry read twice and written once per
+// pass) and the block barrier that ends each pass, neither of which the
+// bound counts. The kernel is its stages in a row (TiledBlock); the stage
+// cuts that time them are separate kernels in rows_stages.cu, which the
+// library the wrappers load does not hold. The tensor cores (wgmma) have
+// no work here, since the kernel compares integers and multiplies no
+// matrices; TMA or cp.async staging would hide the load of 2-3 bytes per
+// lane, which the bound counts as a few percent of the bytes moved, so
+// neither is used.
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 namespace {
@@ -365,16 +404,395 @@ rows_kernel(const RowsIn in, const RowsOut out) {
   }
 }
 
+// ------------------------------------------------------- the tiled design
+
+// A 126-bit key laid out for one 16-byte shared-memory access per lane.
+struct __align__(16) Key128v {
+  u64 hi, lo;
+};
+__device__ __forceinline__ bool key_le(const Key128v& a, const Key128v& b) {
+  return a.hi < b.hi || (a.hi == b.hi && a.lo <= b.lo);
+}
+__device__ __forceinline__ bool key_ne(const Key128v& a, const Key128v& b) {
+  return a.hi != b.hi || a.lo != b.lo;
+}
+__device__ __forceinline__ void store_key(long long* hi, long long* lo,
+                                          long long i, const Key128v& key) {
+  hi[i] = (long long)key.hi;
+  lo[i] = (long long)key.lo;
+}
+
+constexpr int TILE = 1024;              // lanes per tile
+constexpr int TTHREADS = 256;           // threads of a tiled block
+constexpr int TMINB = 4;                // resident tiled blocks per SM
+constexpr int TK = TILE + HALO + 2;     // keys per tile: lanes P0-1 ..
+                                        //   P0+TILE+w-2 of tile P0
+constexpr int TS = TILE + HALO;         // node prefix per tile: lanes P0 ..
+// packed 32-base words: a key reads words s/32 .. s/32 + 2 for s up to
+// BLK + w - 2 + 32, w <= HALO + 1
+constexpr int NW = (BLK + HALO + 31) / 32 + 3;
+
+// The top 64 bits of the 128-bit a:b shifted left by sh (0 <= sh < 64),
+// and the low 64 bits of b:a shifted right by sh.
+__device__ __forceinline__ u64 shl_in(u64 a, u64 b, int sh) {
+  return (a << sh) | ((b >> 1) >> (63 - sh));
+}
+__device__ __forceinline__ u64 shr_in(u64 a, u64 b, int sh) {
+  return (a >> sh) | ((b << 1) << (63 - sh));
+}
+
+// Canonical key of the k bases from stream position s: fw holds base s at
+// bits 62 - 2(s % 32) of word s / 32, rv its complement at bits 2(s % 32).
+__device__ __forceinline__ void packed_key(const u64* fw, const u64* rv,
+                                           int s, int k, u64* out) {
+  const int m = s >> 5, sh = 2 * (s & 31);
+  const u64 f = shl_in(fw[m], fw[m + 1], sh) >> (64 - 2 * k);
+  const u64 r = shr_in(rv[m], rv[m + 1], sh) & ((1ull << (2 * k)) - 1);
+  *out = f < r ? f : r;
+}
+__device__ __forceinline__ void packed_key(const u64* fw, const u64* rv,
+                                           int s, int k, Key128v* out) {
+  const int m = s >> 5, sh = 2 * (s & 31);
+  const u64 t_hi = shl_in(fw[m], fw[m + 1], sh);
+  const u64 t_lo = shl_in(fw[m + 1], fw[m + 2], sh);
+  const int r = 128 - 2 * k;  // 2 .. 64
+  const Key128v f{(t_hi >> 1) >> (r - 1),
+                  ((t_lo >> 1) >> (r - 1)) | (t_hi << (64 - r))};
+  const Key128v rc{shr_in(rv[m + 1], rv[m + 2], sh) &
+                       ((1ull << (2 * k - 64)) - 1),
+                   shr_in(rv[m], rv[m + 1], sh)};
+  *out = key_le(f, rc) ? f : rc;
+}
+
+// One block of the tiled design: its state, and its stages in the order
+// tiled_kernel runs them (pack; for each tile keys_and_prefix, window_min,
+// output, next_tile; finish). K: u64 (k <= 31) or Key128v (31 < k <= 63);
+// COMPACT: C-slot output (else full lanes). The interval passenger, no N
+// codes.
+template <typename K, bool COMPACT>
+struct TiledBlock {
+  static constexpr int THREADS = TTHREADS;
+  static constexpr int WARPS = THREADS / 32;
+  static constexpr int RPT = TILE / THREADS;  // rounds of one lane per thread
+  static constexpr bool WIDE = sizeof(K) > sizeof(u64);
+  static_assert(RPT * WARPS <= 32, "one warp scans a tile's warp counts");
+  static_assert(TILE % THREADS == 0 && BLK % TILE == 0, "whole tiles");
+
+  // the kernel's __grid_constant__ parameter: its pointers are read from
+  // the parameter bank where they are used (a copy here holds them in
+  // registers, which cost rows2 three registers and a resident block)
+  const RowsOut& out;
+  const int tid, lane, wid, k, w, C, lb;
+  const long long blk, out_off;
+  const long long nvb;         // valid lanes of the block
+  const int32_t* const node_off;
+  const uint8_t* const crow;   // the block's codes and node plane
+  const uint8_t* const nrow;
+  K* const ka;                 // shared memory: keys, two buffers
+  K* const kb;
+  int* const sc;               // the tile's node prefix
+  u64* const fw;               // the block's packed codes, both streams
+  u64* const rv;
+  uint16_t* const pa;          // the keys' entries, two buffers
+  uint16_t* const pb;
+  int* const warp_tot;
+  int* const wofs;
+  long long nbase = 0;         // node count before the block (pack)
+  int carry = 0;               // node starts before the tile
+  int slot0 = 0;               // emitted lanes before the tile
+  const K* src = nullptr;      // after window_min: src[i], ps[i] are the
+  const uint16_t* ps = nullptr;  // selection of the window at lane P0-1+i
+
+  __device__ __forceinline__ TiledBlock(const RowsIn& in, const RowsOut& o,
+                                        unsigned char* smem, int* wt,
+                                        int* wo)
+      : out(o), tid(threadIdx.x), lane(threadIdx.x & 31),
+        wid(threadIdx.x >> 5), k(in.k), w(in.w), C(in.C),
+        lb(in.left ? in.left[blockIdx.y] : -1),
+        blk((long long)blockIdx.y * in.SB + blockIdx.x),
+        out_off(blk * (COMPACT ? in.C : BLK)),
+        nvb(in.nvalid[blockIdx.y] - (long long)blockIdx.x * BLK),
+        node_off(in.node_off),
+        crow(in.codes + (long long)blockIdx.y * in.row_lanes +
+             (long long)blockIdx.x * BLK),
+        nrow(in.nd + (long long)blockIdx.y * in.row_lanes +
+             (long long)blockIdx.x * BLK),
+        ka(reinterpret_cast<K*>(smem)), kb(ka + TK),
+        sc(reinterpret_cast<int*>(kb + TK)),
+        fw(reinterpret_cast<u64*>(sc + TS)), rv(fw + NW),
+        pa(reinterpret_cast<uint16_t*>(rv + NW)), pb(pa + TK),
+        warp_tot(wt), wofs(wo) {}
+
+  __device__ __forceinline__ void dead(long long o) const {
+    store_dead(out.key_hi, out.key_lo, o, WIDE);
+    out.se[o] = DEAD_SE;
+    if constexpr (!COMPACT) out.emit[o] = 0;
+  }
+
+  // A block wholly past the row's windows writes its dead outputs.
+  __device__ __forceinline__ bool past_block() const {
+    if (nvb > 0) return false;
+    for (int i = tid; i < (COMPACT ? C : BLK); i += THREADS) dead(out_off + i);
+    if constexpr (COMPACT) {
+      if (tid == 0) out.cnt[blk] = 0;
+    }
+    return true;
+  }
+
+  // Pack the codes, one word per thread from two 16-byte loads: word m > 0
+  // holds lanes 32(m-1) .. 32m-1 (lane L is stream position L + 32), word
+  // 0 only lane -1; lanes past the halo feed bits that are shifted out.
+  // The block's node count is read after it, so that it takes no register
+  // while the packing runs.
+  __device__ __forceinline__ void pack() {
+    for (int m = tid; m < NW; m += THREADS) {
+      u64 f, rc;
+      if (m > 0) {
+        const uint4* s = reinterpret_cast<const uint4*>(crow + 32 * (m - 1));
+        const uint4 v0 = s[0], v1 = s[1];
+        const unsigned x[8] = {v0.x, v0.y, v0.z, v0.w,
+                               v1.x, v1.y, v1.z, v1.w};
+        f = rc = 0;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const u64 c = (x[i >> 2] >> (8 * (i & 3))) & 3u;
+          f |= c << (62 - 2 * i);
+          rc |= (3u - c) << (2 * i);
+        }
+      } else {
+        const u64 c =
+            blockIdx.x > 0 ? crow[-1] : (lb >= 0 ? (unsigned)lb : 0u);
+        f = c;
+        rc = (3u - c) << 62;
+      }
+      fw[m] = f;
+      rv[m] = rc;
+    }
+    __syncthreads();
+    nbase = node_off[blk];
+  }
+
+  // Whether the block's windows end before tile P0; the full-lane variants
+  // then write the rest of the block dead.
+  __device__ __forceinline__ bool past_tile(int P0) const {
+    if (P0 < nvb) return false;
+    if constexpr (!COMPACT) {
+      for (int p = P0 + tid; p < BLK; p += THREADS) dead(out_off + p);
+    }
+    return true;
+  }
+
+  // Entry i = lane - P0 + 1: the keys of lanes P0-1 .. P0+TILE+w-2 with
+  // their entry, and the inclusive node-start prefix of lanes P0 ..
+  // P0+TS-1 counted from lane 0 of the block.
+  __device__ __forceinline__ void keys_and_prefix(int P0) const {
+    for (int i = tid; i < TILE + w; i += THREADS) {
+      packed_key(fw, rv, P0 + i + 31, k, &ka[i]);
+      pa[i] = (uint16_t)i;
+    }
+    for (int i = tid; i < TS; i += THREADS) sc[i] = nrow[P0 + i];
+    __syncthreads();
+    constexpr int SPT = (TS + THREADS - 1) / THREADS;  // odd: no conflicts
+    const int lo = tid * SPT;
+    const int hi = min(lo + SPT, TS);
+    int sum = 0;
+    for (int i = lo; i < hi; ++i) sum += sc[i];
+    int total;
+    int run = carry + block_exclusive_scan<THREADS>(sum, warp_tot, &total);
+    for (int i = lo; i < hi; ++i) {
+      run += sc[i];
+      sc[i] = run;
+    }
+  }
+
+  // The window minimum by log-doubling: after the steps, a buffer's entry i
+  // is the (key, entry) minimum of entries i .. i+s-1, ties to the
+  // rightmost; a last combine of two overlapping windows of s covers w.
+  __device__ __forceinline__ void window_min() {
+    K* s_k = ka;
+    K* d_k = kb;
+    uint16_t* s_p = pa;
+    uint16_t* d_p = pb;
+    int n = TILE + w, s = 1;
+    for (; 2 * s <= w; s *= 2) {
+      n -= s;
+      for (int i = tid; i < n; i += THREADS) {
+        const K x = s_k[i], y = s_k[i + s];
+        const bool right = key_le(y, x);
+        d_k[i] = right ? y : x;
+        d_p[i] = right ? s_p[i + s] : s_p[i];
+      }
+      __syncthreads();
+      K* t = s_k; s_k = d_k; d_k = t;
+      uint16_t* u = s_p; s_p = d_p; d_p = u;
+    }
+    if (w > s) {
+      const int d = w - s;
+      for (int i = tid; i <= TILE; i += THREADS) {
+        K x = s_k[i];
+        uint16_t q = s_p[i];
+        const K y = s_k[i + d];
+        if (key_le(y, x)) {
+          x = y;
+          q = s_p[i + d];
+        }
+        d_k[i] = x;
+        d_p[i] = q;
+      }
+      __syncthreads();
+      s_k = d_k;
+      s_p = d_p;
+    }
+    if (w == 1) __syncthreads();  // no step above published the node prefix
+    src = s_k;
+    ps = s_p;
+  }
+
+  __device__ __forceinline__ long long packed_se(int i) const {
+    const int q = ps[i] - 1;  // the selected k-mer's lane - P0
+    const long long s0 = nbase + sc[q];
+    const long long e = nbase + sc[q + k - 1];
+    const unsigned span = (unsigned)min(e - s0, 63ll);
+    return (long long)(((unsigned)s0 << 6) | span);
+  }
+
+  // Lane p = P0 + j (window j + 1) emits when it is valid and its
+  // selection differs from lane p - 1's or lane p - 1 is not valid.
+  __device__ __forceinline__ bool emits(int P0, int p) const {
+    const int j = p - P0;
+    const bool pvalid = p > 0 ? p - 1 < nvb : (blockIdx.x > 0 || lb >= 0);
+    return p < nvb && (key_ne(src[j + 1], src[j]) || !pvalid);
+  }
+
+  // rows2: full lanes, coalesced. rows3w: the emitted lanes compacted in
+  // lane order (rounds, then warps, then lanes) after the slots of earlier
+  // tiles.
+  __device__ __forceinline__ void output(int P0) {
+    if constexpr (!COMPACT) {
+      for (int j = tid; j < TILE; j += THREADS) {
+        const int p = P0 + j;
+        const long long o = out_off + p;
+        if (p < nvb) {
+          store_key(out.key_hi, out.key_lo, o, src[j + 1]);
+          out.se[o] = packed_se(j + 1);
+        } else {
+          store_dead(out.key_hi, out.key_lo, o, WIDE);
+          out.se[o] = DEAD_SE;
+        }
+        out.emit[o] = (uint8_t)emits(P0, p);
+      }
+    } else {
+      unsigned before[RPT];
+      bool em[RPT];
+#pragma unroll
+      for (int t = 0; t < RPT; ++t) {
+        em[t] = emits(P0, P0 + tid + t * THREADS);
+        const unsigned ball = __ballot_sync(~0u, em[t]);
+        before[t] = __popc(ball & ((1u << lane) - 1u));
+        if (lane == 0) wofs[t * WARPS + wid] = __popc(ball);
+      }
+      __syncthreads();
+      if (wid == 0) {
+        const int v = lane < RPT * WARPS ? wofs[lane] : 0;
+        int x = v;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(~0u, x, o);
+          if (lane >= o) x += y;
+        }
+        if (lane < RPT * WARPS) wofs[lane] = x - v;
+        if (lane == 31) warp_tot[0] = x;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int t = 0; t < RPT; ++t) {
+        const int slot = slot0 + wofs[t * WARPS + wid] + (int)before[t];
+        if (em[t] && slot < C) {
+          const int i = tid + t * THREADS + 1;
+          store_key(out.key_hi, out.key_lo, out_off + slot, src[i]);
+          out.se[out_off + slot] = packed_se(i);
+        }
+      }
+      slot0 += warp_tot[0];
+    }
+  }
+
+  __device__ __forceinline__ void next_tile() {
+    carry = sc[TILE - 1];
+    __syncthreads();  // the next tile overwrites the shared arrays
+  }
+
+  // rows3w: the slots past the count (disjoint from the slots written
+  // above), and the count.
+  __device__ __forceinline__ void finish() const {
+    if constexpr (COMPACT) {
+      for (int i = slot0 + tid; i < C; i += THREADS) dead(out_off + i);
+      if (tid == 0) out.cnt[blk] = slot0;
+    }
+  }
+};
+
+template <typename K>
+constexpr size_t tiled_smem() {
+  return 2 * sizeof(K) * TK + sizeof(int) * TS + 2 * sizeof(u64) * NW +
+         2 * sizeof(uint16_t) * TK;
+}
+
+template <typename K, bool COMPACT>
+__global__ void __launch_bounds__(TTHREADS, TMINB)
+tiled_kernel(const __grid_constant__ RowsIn in,
+             const __grid_constant__ RowsOut out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int warp_tot[TTHREADS / 32];
+  __shared__ int wofs[COMPACT ? 32 : 1];
+  TiledBlock<K, COMPACT> t(in, out, smem, warp_tot, wofs);
+  if (t.past_block()) return;
+  t.pack();
+  for (int P0 = 0; P0 < BLK && !t.past_tile(P0); P0 += TILE) {
+    t.keys_and_prefix(P0);
+    t.window_min();
+    t.output(P0);
+    t.next_tile();
+  }
+  t.finish();
+}
+
+template <typename K, bool POS>
+constexpr size_t rows_smem() {
+  return sizeof(K) * NK + (POS ? 0 : sizeof(int) * NS) + NC;
+}
+
+template <typename F>
+int set_smem(F* kern, size_t smem) {
+  return (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 template <typename K, bool COMPACT, bool POS, bool NCODE, int THREADS>
 int launch(const RowsIn& in, const RowsOut& out, int R, void* stream) {
-  constexpr size_t smem = sizeof(K) * NK + (POS ? 0 : sizeof(int) * NS) + NC;
+  constexpr size_t smem = rows_smem<K, POS>();
   auto* kern = rows_kernel<K, COMPACT, POS, NCODE, THREADS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (int err = set_smem(kern, smem)) return err;
   dim3 grid(in.SB, R);
   kern<<<grid, THREADS, smem, (cudaStream_t)stream>>>(in, out);
   return (int)cudaGetLastError();
+}
+
+template <typename K, bool COMPACT>
+int launch_tiled(const RowsIn& in, const RowsOut& out, int R, void* stream) {
+  constexpr size_t smem = tiled_smem<K>();
+  auto* kern = tiled_kernel<K, COMPACT>;
+  if (int err = set_smem(kern, smem)) return err;
+  dim3 grid(in.SB, R);
+  kern<<<grid, TTHREADS, smem, (cudaStream_t)stream>>>(in, out);
+  return (int)cudaGetLastError();
+}
+
+template <typename F>
+int occupancy(F* kern, int threads, size_t smem, int* blocks) {
+  if (int err = set_smem(kern, smem)) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern,
+                                                            threads, smem);
 }
 
 RowsIn rows_in(const void* codes, const void* nd, const void* nvalid,
@@ -406,33 +824,42 @@ extern "C" int phi_rows3_launch(const void* codes, const void* nd,
       R, stream);
 }
 
-extern "C" int phi_rows3w_launch(const void* codes, const void* nd,
-                                 const void* nvalid, const void* left,
-                                 const void* node_off, long long row_lanes,
-                                 int R, int SB, int k, int w, int C,
-                                 void* out_hi, void* out_lo, void* out_se,
-                                 void* out_cnt, void* stream) {
-  const RowsOut out{static_cast<long long*>(out_hi),
-                    static_cast<long long*>(out_lo),
-                    static_cast<long long*>(out_se),
-                    static_cast<int32_t*>(out_cnt), nullptr, nullptr};
-  return launch<Key128, true, false, false, 512>(
-      rows_in(codes, nd, nvalid, left, node_off, row_lanes, SB, k, w, C), out,
-      R, stream);
-}
+// rows3w and rows2 run the tiled design; the _ref entry points run the
+// same functions in the direct-scan design (the card checks time and compare
+// the two; the main path never calls them).
+#define PHI_ROWS3W_ENTRY(NAME, CALL)                                          \
+  extern "C" int NAME(const void* codes, const void* nd, const void* nvalid, \
+                      const void* left, const void* node_off,                \
+                      long long row_lanes, int R, int SB, int k, int w, int C, \
+                      void* out_hi, void* out_lo, void* out_se,              \
+                      void* out_cnt, void* stream) {                         \
+    const RowsOut out{static_cast<long long*>(out_hi),                       \
+                      static_cast<long long*>(out_lo),                       \
+                      static_cast<long long*>(out_se),                       \
+                      static_cast<int32_t*>(out_cnt), nullptr, nullptr};     \
+    return CALL(rows_in(codes, nd, nvalid, left, node_off, row_lanes, SB, k, \
+                        w, C),                                               \
+                out, R, stream);                                             \
+  }
+PHI_ROWS3W_ENTRY(phi_rows3w_launch, (launch_tiled<Key128v, true>))
+PHI_ROWS3W_ENTRY(phi_rows3w_ref_launch,
+                 (launch<Key128, true, false, false, 512>))
 
-extern "C" int phi_rows2_launch(const void* codes, const void* nd,
-                                const void* nvalid, const void* left,
-                                const void* node_off, long long row_lanes,
-                                int R, int SB, int k, int w, void* out_key,
-                                void* out_se, void* out_emit, void* stream) {
-  const RowsOut out{static_cast<long long*>(out_key), nullptr,
-                    static_cast<long long*>(out_se), nullptr,
-                    static_cast<uint8_t*>(out_emit), nullptr};
-  return launch<u64, false, false, false, 256>(
-      rows_in(codes, nd, nvalid, left, node_off, row_lanes, SB, k, w, 0), out,
-      R, stream);
-}
+#define PHI_ROWS2_ENTRY(NAME, CALL)                                           \
+  extern "C" int NAME(const void* codes, const void* nd, const void* nvalid, \
+                      const void* left, const void* node_off,                \
+                      long long row_lanes, int R, int SB, int k, int w,      \
+                      void* out_key, void* out_se, void* out_emit,           \
+                      void* stream) {                                        \
+    const RowsOut out{static_cast<long long*>(out_key), nullptr,             \
+                      static_cast<long long*>(out_se), nullptr,              \
+                      static_cast<uint8_t*>(out_emit), nullptr};             \
+    return CALL(rows_in(codes, nd, nvalid, left, node_off, row_lanes, SB, k, \
+                        w, 0),                                               \
+                out, R, stream);                                             \
+  }
+PHI_ROWS2_ENTRY(phi_rows2_launch, (launch_tiled<u64, false>))
+PHI_ROWS2_ENTRY(phi_rows2_ref_launch, (launch<u64, false, false, false, 256>))
 
 // rows (2-bit codes) and seq (codes that may hold N): no node plane, the
 // selected k-mer's row-local start rides along; left may be null for seq.
@@ -458,4 +885,32 @@ extern "C" int phi_seq_launch(const void* codes, const void* nvalid,
   return launch<u64, false, true, true, 256>(
       rows_in(codes, nullptr, nvalid, left, nullptr, row_lanes, SB, k, w, 0),
       out, R, stream);
+}
+
+// Resident blocks per SM of one kernel by its entry point's name (rows3,
+// rows3w, rows2, rows, seq, rows3w_ref, rows2_ref) into *blocks; returns a
+// cudaError, or -1 for an unknown name.
+extern "C" int phi_rows_occupancy(const char* name, int* blocks) {
+  if (!strcmp(name, "rows3"))
+    return occupancy(rows_kernel<u64, true, false, false, 256>, 256,
+                     rows_smem<u64, false>(), blocks);
+  if (!strcmp(name, "rows3w"))
+    return occupancy(tiled_kernel<Key128v, true>, TTHREADS,
+                     tiled_smem<Key128v>(), blocks);
+  if (!strcmp(name, "rows2"))
+    return occupancy(tiled_kernel<u64, false>, TTHREADS, tiled_smem<u64>(),
+                     blocks);
+  if (!strcmp(name, "rows"))
+    return occupancy(rows_kernel<u64, false, true, false, 256>, 256,
+                     rows_smem<u64, true>(), blocks);
+  if (!strcmp(name, "seq"))
+    return occupancy(rows_kernel<u64, false, true, true, 256>, 256,
+                     rows_smem<u64, true>(), blocks);
+  if (!strcmp(name, "rows3w_ref"))
+    return occupancy(rows_kernel<Key128, true, false, false, 512>, 512,
+                     rows_smem<Key128, false>(), blocks);
+  if (!strcmp(name, "rows2_ref"))
+    return occupancy(rows_kernel<u64, false, false, false, 256>, 256,
+                     rows_smem<u64, false>(), blocks);
+  return -1;
 }

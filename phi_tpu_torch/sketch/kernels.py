@@ -19,12 +19,16 @@ On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
 its plain torch twin (`sketch_rows3_torch`, ...), which computes the same
 outputs over whole rows in int64.
 
-What bounds the kernels, and their design, are in the source note at the
-top of `csrc/rows.cu`: they are integer-ALU bound (key building and the
-window-of-w minimum), and every block is independent because the TPU
-kernels' grid carries (the dedup carry, the node-count carry, the roll
-network compaction) become a one-base left context, per-block node offsets
-and a block-wide scan.
+What bounds the kernels, and their designs, are in the source note at the
+top of `csrc/rows.cu`: the full-lane variants and rows3 are bound by the
+bytes they move, rows3w by its 126-bit key and compare operations. Every
+block is independent because the TPU kernels' grid carries (the dedup
+carry, the node-count carry, the roll network compaction) become a one-base
+left context, per-block node offsets and a block-wide scan. rows2 and
+rows3w run the tiled design (an O(1) key per lane, a log-doubling window
+minimum computed once per lane); rows3, rows and seq run the direct-scan
+design, which `sketch_rows2_ref` and `sketch_rows3w_ref` also reach for
+rows2 and rows3w so that the card checks can time and compare the two.
 
 Around the kernels, the joins are torch ops: `join_rows3` and `join_rows3w`
 port `_pallas_join_rows3_ck` and `_pallas_join_rows3w_ck` (the 2-bit
@@ -72,7 +76,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc", "rows.cu")
 _BUILD_DIR = os.path.join(_PKG, "_build")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _SIGN = -(1 << 63)  # int64 sign bit: x ^ _SIGN orders like x as unsigned
 
 
@@ -503,18 +507,22 @@ def _nvcc() -> str:
                        "csrc/rows.cu on first use")
 
 
+def _library_path() -> str:
+    with open(_CSRC, "rb") as f:
+        src = f.read()
+    tag = hashlib.sha1(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:12]
+    return os.path.join(_BUILD_DIR, f"librows-{tag}.so")
+
+
 def build_rows() -> ctypes.CDLL:
     """Build (once per source version) and load the rows kernel library.
-    Raises if nvcc fails; the output goes to phi_tpu_torch/_build/."""
+    Raises if nvcc fails; the output goes to phi_tpu_torch/_build/, with
+    ptxas's report of each kernel beside it (build_log)."""
     global _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
-        with open(_CSRC, "rb") as f:
-            src = f.read()
-        tag = hashlib.sha1(src + " ".join(_NVCC_FLAGS).encode()) \
-            .hexdigest()[:12]
-        so = os.path.join(_BUILD_DIR, f"librows-{tag}.so")
+        so = _library_path()
         if not os.path.exists(so):
             os.makedirs(_BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
@@ -523,32 +531,60 @@ def build_rows() -> ctypes.CDLL:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                    f"{' '.join(cmd)}\n{proc.stderr}")
+            with open(f"{so}.log", "w") as f:
+                f.write(proc.stderr)
             os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        inputs = [vp, vp, vp, vp, vp, cl, ci, ci, ci, ci]
-        lib.phi_rows3_launch.argtypes = inputs + [ci, vp, vp, vp, vp]
-        lib.phi_rows3w_launch.argtypes = inputs + [ci, vp, vp, vp, vp, vp]
-        lib.phi_rows2_launch.argtypes = inputs + [vp, vp, vp, vp]
-        pos_inputs = [vp, vp, vp, cl, ci, ci, ci, ci]
-        lib.phi_rows_launch.argtypes = pos_inputs + [vp, vp, vp, vp]
-        lib.phi_seq_launch.argtypes = pos_inputs + [vp, vp, vp, vp]
-        for fn in (lib.phi_rows3_launch, lib.phi_rows3w_launch,
-                   lib.phi_rows2_launch, lib.phi_rows_launch,
-                   lib.phi_seq_launch):
-            fn.restype = ci
-        _lib = lib
-        return lib
+        _lib = _bind(ctypes.CDLL(so))
+        return _lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of the library's entry points."""
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    inputs = [vp, vp, vp, vp, vp, cl, ci, ci, ci, ci]
+    wide = inputs + [ci, vp, vp, vp, vp, vp]
+    full = inputs + [vp, vp, vp, vp]
+    pos_inputs = [vp, vp, vp, cl, ci, ci, ci, ci]
+    for name, args in (("rows3", inputs + [ci, vp, vp, vp, vp]),
+                       ("rows3w", wide), ("rows3w_ref", wide),
+                       ("rows2", full), ("rows2_ref", full),
+                       ("rows", pos_inputs + [vp, vp, vp, vp]),
+                       ("seq", pos_inputs + [vp, vp, vp, vp])):
+        fn = getattr(lib, f"phi_{name}_launch")
+        fn.argtypes = args
+        fn.restype = ci
+    lib.phi_rows_occupancy.argtypes = [ctypes.c_char_p,
+                                       ctypes.POINTER(ci)]
+    lib.phi_rows_occupancy.restype = ci
+    return lib
+
+
+def build_log() -> str:
+    """nvcc's -Xptxas -v report of the built library (registers, shared
+    memory and spills of every kernel instantiation)."""
+    build_rows()
+    with open(f"{_library_path()}.log") as f:
+        return f.read()
+
+
+def occupancy(name: str) -> int:
+    """Resident blocks per SM of the kernel behind `phi_{name}_launch` on
+    the current device (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    blocks = ctypes.c_int(0)
+    rc = build_rows().phi_rows_occupancy(name.encode(), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"{name} occupancy query failed: {rc}")
+    return blocks.value
 
 
 def _launch(name: str, ins: tuple, SB: int, k: int, w: int, extra: tuple,
-            outs: tuple) -> None:
-    """Launch the kernel `phi_{name}_launch` on the current stream of the
-    first input's device: the input tensors (None for a null pointer), then
-    row_lanes, R, SB, k, w, the extra ints, the outputs and the stream.
-    Raises if the launch fails."""
+            outs: tuple, lib: ctypes.CDLL | None = None) -> None:
+    """Launch the kernel `phi_{name}_launch` of lib (default: build_rows())
+    on the current stream of the first input's device: the input tensors
+    (None for a null pointer), then row_lanes, R, SB, k, w, the extra ints,
+    the outputs and the stream. Raises if the launch fails."""
     codes = ins[0]
-    fn = getattr(build_rows(), f"phi_{name}_launch")
+    fn = getattr(lib or build_rows(), f"phi_{name}_launch")
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         rc = fn(*(None if t is None else t.data_ptr() for t in ins),
@@ -586,6 +622,22 @@ def sketch_rows3(codes, nd, nvalid, left, node_off, k: int, w: int, C: int):
     return key, se, cnt
 
 
+def _rows3w_on_card(entry: str, codes, nd, nvalid, left, node_off, k: int,
+                    w: int, C: int):
+    _check_rows("rows3w", codes, nd, nvalid, left, node_off, k, w, C,
+                (NARROW_MAX_K + 1, WIDE_MAX_K))
+    if codes.data_ptr() % 16:
+        raise ValueError(f"{entry} needs codes aligned to 16 bytes")
+    R, SB = node_off.shape
+    hi = torch.empty((R, SB * C), dtype=torch.int64, device=codes.device)
+    lo = torch.empty_like(hi)
+    se = torch.empty_like(hi)
+    cnt = torch.empty((R, SB), dtype=torch.int32, device=codes.device)
+    _launch(entry, (codes, nd, nvalid, left, node_off), SB, k, w, (C,),
+            (hi, lo, se, cnt))
+    return hi, lo, se, cnt
+
+
 def sketch_rows3w(codes, nd, nvalid, left, node_off, k: int, w: int,
                   C: int):
     """rows3w sketch (31 < k <= 63): the CUDA kernel for CUDA tensors, the
@@ -594,17 +646,35 @@ def sketch_rows3w(codes, nd, nvalid, left, node_off, k: int, w: int,
     if not _on_card("rows3w", codes):
         return sketch_rows3w_torch(codes, nd, nvalid, left, node_off, k, w,
                                    C)
-    _check_rows("rows3w", codes, nd, nvalid, left, node_off, k, w, C,
-                (NARROW_MAX_K + 1, WIDE_MAX_K))
-    R, SB = node_off.shape
-    hi = torch.empty((R, SB * C), dtype=torch.int64, device=codes.device)
-    lo = torch.empty_like(hi)
-    se = torch.empty_like(hi)
-    cnt = torch.empty((R, SB), dtype=torch.int32, device=codes.device)
-    _launch("rows3w", (codes, nd, nvalid, left, node_off), SB, k, w, (C,),
-            (hi, lo, se, cnt))
+    out = _rows3w_on_card("rows3w", codes, nd, nvalid, left, node_off, k, w,
+                          C)
     sketch_rows3w.launches += 1
-    return hi, lo, se, cnt
+    return out
+
+
+def sketch_rows3w_ref(codes, nd, nvalid, left, node_off, k: int, w: int,
+                      C: int):
+    """rows3w in the direct-scan design (CUDA tensors only), for the card
+    checks that time and compare it with the tiled design."""
+    if not _on_card("rows3w_ref", codes):
+        raise ValueError("sketch_rows3w_ref runs on cuda tensors only")
+    return _rows3w_on_card("rows3w_ref", codes, nd, nvalid, left, node_off,
+                           k, w, C)
+
+
+def _rows2_on_card(entry: str, codes, nd, nvalid, left, node_off, k: int,
+                   w: int):
+    _check_rows("rows2", codes, nd, nvalid, left, node_off, k, w, None,
+                (1, NARROW_MAX_K))
+    if codes.data_ptr() % 16:
+        raise ValueError(f"{entry} needs codes aligned to 16 bytes")
+    R, SB = node_off.shape
+    key = torch.empty((R, SB * BLK), dtype=torch.int64, device=codes.device)
+    se = torch.empty_like(key)
+    emit = torch.empty((R, SB * BLK), dtype=torch.bool, device=codes.device)
+    _launch(entry, (codes, nd, nvalid, left, node_off), SB, k, w, (),
+            (key, se, emit))
+    return key, se, emit
 
 
 def sketch_rows2(codes, nd, nvalid, left, node_off, k: int, w: int):
@@ -613,16 +683,18 @@ def sketch_rows2(codes, nd, nvalid, left, node_off, k: int, w: int):
     `sketch_rows2.launches` counts kernel launches."""
     if not _on_card("rows2", codes):
         return sketch_rows2_torch(codes, nd, nvalid, left, node_off, k, w)
-    _check_rows("rows2", codes, nd, nvalid, left, node_off, k, w, None,
-                (1, NARROW_MAX_K))
-    R, SB = node_off.shape
-    key = torch.empty((R, SB * BLK), dtype=torch.int64, device=codes.device)
-    se = torch.empty_like(key)
-    emit = torch.empty((R, SB * BLK), dtype=torch.bool, device=codes.device)
-    _launch("rows2", (codes, nd, nvalid, left, node_off), SB, k, w, (),
-            (key, se, emit))
+    out = _rows2_on_card("rows2", codes, nd, nvalid, left, node_off, k, w)
     sketch_rows2.launches += 1
-    return key, se, emit
+    return out
+
+
+def sketch_rows2_ref(codes, nd, nvalid, left, node_off, k: int, w: int):
+    """rows2 in the direct-scan design (CUDA tensors only), for the card
+    checks that time and compare it with the tiled design."""
+    if not _on_card("rows2_ref", codes):
+        raise ValueError("sketch_rows2_ref runs on cuda tensors only")
+    return _rows2_on_card("rows2_ref", codes, nd, nvalid, left, node_off, k,
+                          w)
 
 
 def _launch_pos(name: str, codes, nvalid, left, SB: int, k: int, w: int):

@@ -1,8 +1,10 @@
 """Card tests of the port: the rows3, rows3w, rows2, rows and seq CUDA
 kernels against their plain twins on the same CUDA tensors, at the main
-path's shape, and the v1 and single-sequence joins on the card against the
-same joins on the CPU. They skip without a CUDA device. This file imports
-no jax, so it also runs where jax is absent:
+path's shape; rows2 and rows3w also against their direct-scan entry
+points on rows at the tiled design's edges; and the v1 and
+single-sequence joins on the card against the same joins on the CPU. They
+skip without a CUDA device. This file imports no jax, so it also runs
+where jax is absent:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 """
@@ -29,6 +31,32 @@ def _inputs(seed, sb, rows=8):
     node_off = tk.block_node_offsets(
         nd, torch.from_numpy(rng.integers(0, 99, rows).astype(np.int32)), sb)
     return codes, nd, nvalid, left, node_off
+
+
+def _edge_inputs(seed, sb=4):
+    """16 rows at the tiled design's edges: nvalid 0, 1, at every
+    1024-lane tile edge of a block, 8191, 8193, one block and a tile edge
+    plus one, full; a poly-A row and a period-2 row (every key ties); left
+    bases present and absent; node starts of 1-3, a few saturated at 255."""
+    rng = np.random.default_rng(seed)
+    row_lanes = (sb + 1) * tk.BLK
+    full = sb * tk.BLK
+    nvalid = [0, 1, 1024, 2048, 3072, 4096, 5120, 6144, 7168, 8191, 8192,
+              8193, tk.BLK + 1025, full - 1, full, full - 77]
+    codes = rng.integers(0, 4, (16, row_lanes), dtype=np.uint8)
+    codes[14] = 0
+    codes[15] = np.resize(np.array([0, 1], np.uint8), row_lanes)
+    left = np.where(np.arange(16) % 3 == 0, -1, rng.integers(0, 4, 16))
+    nd = (rng.random((16, row_lanes)) < 0.1) * rng.integers(1, 4,
+                                                           (16, row_lanes))
+    nd[rng.random((16, row_lanes)) < 0.001] = 255
+    nd[:, 0] = 0
+    nd = torch.from_numpy(nd.astype(np.uint8))
+    node_off = tk.block_node_offsets(
+        nd, torch.from_numpy(rng.integers(0, 99, 16).astype(np.int32)), sb)
+    return (torch.from_numpy(codes), nd,
+            torch.tensor(nvalid, dtype=torch.int32),
+            torch.from_numpy(left.astype(np.int32)), node_off)
 
 
 @pytest.mark.cuda
@@ -76,6 +104,42 @@ def test_rows2_kernel_matches_twin_on_card():
     assert tk.sketch_rows2.launches == before + 1
     for a, b in zip(want, got):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,w", [(31, 25), (31, 99), (21, 1), (15, 16),
+                                 (20, 33), (20, 34)])
+def test_rows2_edges_match_twin_and_direct_scan_on_card(k, w):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = tuple(a.cuda() for a in _edge_inputs(k + w))
+    want = tk.sketch_rows2_torch(*args, k, w)
+    got = tk.sketch_rows2(*args, k, w)
+    old = tk.sketch_rows2_ref(*args, k, w)
+    torch.cuda.synchronize()
+    for a, b, c in zip(want, got, old):
+        assert torch.equal(a, b)
+        assert torch.equal(c, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,w,C", [(35, 25, None), (63, 67, None),
+                                   (40, 1, tk.BLK), (32, 11, 64),
+                                   (40, 34, None)])
+def test_rows3w_edges_match_twin_and_direct_scan_on_card(k, w, C):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    C = C or tk.block_cap(w)
+    args = tuple(a.cuda() for a in _edge_inputs(k + w))
+    want = tk.sketch_rows3w_torch(*args, k, w, C)
+    got = tk.sketch_rows3w(*args, k, w, C)
+    old = tk.sketch_rows3w_ref(*args, k, w, C)
+    torch.cuda.synchronize()
+    for a, b, c in zip(want, got, old):
+        assert torch.equal(a, b)
+        assert torch.equal(c, b)
+    if C == 64:
+        assert bool((got[3] > C).any())
 
 
 def _seq_with_n(seed, n):

@@ -49,12 +49,36 @@ def _port_tensors(seqs, cumlens, batch):
                                            None), "cpu")
 
 
-@pytest.mark.parametrize("k,w", [(21, 7), (31, 25)])
-def test_rows2_twin_matches_pallas(k, w):
-    # walk 0 spans 3 rows (its third row continues across a batch
-    # boundary), walk 1 is shorter than one block, walk 2 is periodic
+def _edge_walks(k, w, case):
+    """Walks at the card kernels' edges. None: walk 0 spans 3 rows (its
+    third row continues across a batch boundary), walk 1 is shorter than
+    one block, walk 2 is periodic. "ties": a poly-A walk of 3 rows and a
+    period-2 walk, where every key ties. "edges": rows whose nvalid is 1,
+    a 1024-lane tile, 8191, 8193, and a walk of 3 rows whose last holds 3
+    tiles; a pad row has none."""
+    if case == "edges":
+        halo = k + w - 2
+        return _instance(k, [halo + n for n in (1, 1024, 8191, 8193,
+                                                2 * SB * tk.BLK + 3072)])
     seqs, cumlens = _instance(k, [40_000, 5_000, 20_000])
-    seqs[2] = np.resize(np.array([0, 1, 2, 2, 3, 1, 0], np.uint8), 20_000)
+    if case == "ties":
+        seqs[0] = np.zeros(40_000, np.uint8)
+        seqs[1] = np.resize(np.array([0, 1], np.uint8), 5_000)
+    else:
+        seqs[2] = np.resize(np.array([0, 1, 2, 2, 3, 1, 0], np.uint8),
+                            20_000)
+    return seqs, cumlens
+
+
+@pytest.mark.parametrize("k,w,case", [
+    pytest.param(21, 7, None, id="21-7"),
+    pytest.param(31, 25, None, id="31-25"),
+    pytest.param(31, 25, "ties", id="31-25-ties"),
+    pytest.param(31, 25, "edges", id="31-25-edges"),
+    pytest.param(15, 1, None, id="15-1"),
+    pytest.param(31, 99, None, id="31-99")])
+def test_rows2_twin_matches_pallas(k, w, case):
+    seqs, cumlens = _edge_walks(k, w, case)
     batches, _ = _batches(seqs, cumlens, k, w)
     carry = jnp.zeros(3, jnp.uint32)
     saw_cont = False

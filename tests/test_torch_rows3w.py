@@ -45,12 +45,17 @@ def _port_batch(seqs, cumlens, batch, S_cap):
             tk.block_node_offsets(nd, base, SB))
 
 
-@pytest.mark.parametrize("k,w", [(35, 25), (47, 9), (63, 11)])
-def test_rows3w_twin_matches_pallas(k, w):
-    # walk 0 spans 3 rows (its third row continues across a batch
-    # boundary), walk 1 is shorter than one block, walk 2 is periodic
-    seqs, cumlens = _instance(k, [40_000, 5_000, 20_000])
-    seqs[2] = np.resize(np.array([0, 1, 2, 2, 3, 1, 0], np.uint8), 20_000)
+@pytest.mark.parametrize("k,w,case", [
+    pytest.param(35, 25, None, id="35-25"),
+    pytest.param(47, 9, None, id="47-9"),
+    pytest.param(63, 11, None, id="63-11"),
+    pytest.param(35, 25, "ties", id="35-25-ties"),
+    pytest.param(35, 25, "edges", id="35-25-edges"),
+    pytest.param(40, 1, None, id="40-1"),
+    pytest.param(63, 67, None, id="63-67")])
+def test_rows3w_twin_matches_pallas(k, w, case):
+    from test_torch_rows2 import _edge_walks
+    seqs, cumlens = _edge_walks(k, w, case)
     C = tk.block_cap(w)
     batches, S_cap = _batches(seqs, cumlens, k, w)
     carry = jnp.zeros(5, jnp.uint32)

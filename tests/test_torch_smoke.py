@@ -22,8 +22,8 @@ def test_smoke_imports_only_torch_and_the_port():
             roots.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             roots.add(node.module.split(".")[0])
-    allowed = {"__future__", "json", "os", "subprocess", "sys", "time",
-               "numpy", "torch", "phi_tpu_torch"}
+    allowed = {"__future__", "ctypes", "json", "os", "re", "subprocess",
+               "sys", "time", "numpy", "torch", "phi_tpu_torch"}
     assert roots <= allowed, roots - allowed
 
 
