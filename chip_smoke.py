@@ -6,26 +6,27 @@
 Phases, in order; any failure exits non-zero:
   0. the native host library, then the card (nvidia-smi name and power
      limit) and the torch/CUDA versions; no CUDA device -> exit 1;
-  1. build the rows kernel family (rows3, rows3w, rows2, rows, seq, and
-     the direct-scan rows3w_ref and rows2_ref) from
-     phi_tpu_torch/csrc/rows.cu (into phi_tpu_torch/_build/), and beside
-     it, with its nvcc started at the same time, the stage cuts of the
-     tiled rows2 and rows3w from csrc/rows_stages.cu; ptxas's registers,
-     shared memory and spills of each of the seven, and its resident
-     blocks per SM; a spill fails;
+  1. build the rows kernel family (the tiled rows3, rows3w, rows2 and
+     rows, seq, and the direct-scan rows3_ref, rows3w_ref, rows2_ref and
+     rows_ref) from phi_tpu_torch/csrc/rows.cu (into
+     phi_tpu_torch/_build/), and beside it, with its nvcc started at the
+     same time, the stage cuts of the four tiled kernels from
+     csrc/rows_stages.cu; ptxas's registers, shared memory and spills of
+     each of the nine, and its resident blocks per SM; a spill fails;
   2. each kernel against its plain torch twin on the card at the production
      shape (R=8, SB=256): rows3 at k=31 w=25 C=2048, plus (k, w) = (21, 11)
      and a cnt > C case; rows3w at k=35 w=25 and k=63 w=11; rows2 and rows
      at k=31 w=25 (rows also at k=21 w=11); seq at k=31 w=25 on one
      5,000,000-base sequence with N runs: outputs array-equal; medians of
      10 CUDA-event timings of one call each (cuda_ms), and each kernel's
-     bound (bound_ms below). rows2 and rows3w (the tiled design) are also
-     array-equal to their direct-scan entry points and timed against them
-     in turns (old, new, new, old, 10 timings of one call each; the same
-     with 5 calls per timing logged beside), their time split by stage
-     (stage_split), and both are held against their twins and the direct
-     scan on edge rows (ties, nvalid at tile edges, 0 and 1 valid lanes,
-     w = 1, a power of two, and 33 and 34, k + w - 2 = 128, cnt > C);
+     bound (bound_ms below). The four tiled kernels are also array-equal
+     to their direct-scan entry points and timed against them in turns
+     (old, new, new, old, 10 timings of one call each; the same with 5
+     calls per timing logged beside), their time split by stage
+     (stage_split), and all four are held against their twins and the
+     direct scan on edge rows (ties, nvalid at tile edges, 0 and 1 valid
+     lanes, w = 1, a power of two, and 33 and 34, k + w - 2 = 128,
+     cnt > C);
   3. the whole path on a small instance (4 haplotypes x 200 kbp) on cuda
      and on cpu: byte-identical FASTA, same report, bound and objective;
   4. the main path at size (49 haplotypes x 5 Mbp, 30 bp nodes, 1x reads,
@@ -164,31 +165,38 @@ def edge_inputs(seed: int, sb: int = 4):
             tk.block_node_offsets(nd, base.to(dev), sb))
 
 
+# The kernel instantiations of rows.cu by their entry point's name: the
+# tiled design's four, seq, and the direct scans of the tiled four.
+INSTANTIATIONS = ("rows3", "rows3w", "rows2", "rows", "seq", "rows3_ref",
+                  "rows3w_ref", "rows2_ref", "rows_ref")
+
+
+def kernel_name(mangled: str) -> str:
+    """The entry point's name of a mangled kernel, from its template
+    arguments (tiled_kernel<K, COMPACT, POS>, rows_kernel<K, COMPACT, POS,
+    NCODE, THREADS>); another symbol keeps its mangled name."""
+    import re
+    args = re.search(r"(tiled|rows)_kernelI(.*)EEv", mangled)
+    if not args:
+        return mangled
+    compact, pos, *ncode = (f == "1" for f in re.findall(r"Lb([01])E",
+                                                         args.group(2)))
+    name = ("rows3w" if "Key128" in args.group(2) else "rows3" if compact
+            else "rows" if pos else "rows2")
+    if args.group(1) == "tiled":
+        return name
+    return "seq" if ncode[0] else f"{name}_ref"
+
+
 def ptxas_report(log: str) -> dict:
     """ptxas's lines per kernel from nvcc -Xptxas -v output: {name: (used
-    line, spill line)}, the name recovered from the mangled template
-    arguments (rows_kernel<K, COMPACT, POS, NCODE, THREADS>,
-    tiled_kernel<K, COMPACT>)."""
+    line, spill line)}, named by kernel_name."""
     import re
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            mangled = m.group(1)
-            args = re.search(r"(tiled|rows)_kernelI(.*)EEv", mangled)
-            name = mangled
-            if args:
-                wide = "Key128" in args.group(2)
-                flags = [f == "1" for f in re.findall(r"Lb([01])E",
-                                                      args.group(2))]
-                if args.group(1) == "tiled":
-                    name = "rows3w" if wide else "rows2"
-                elif wide:
-                    name = "rows3w_ref"
-                elif flags[1]:
-                    name = "seq" if flags[2] else "rows"
-                else:
-                    name = "rows3" if flags[0] else "rows2_ref"
+            name = kernel_name(m.group(1))
             out[name] = ["", ""]
         elif name and "spill" in ln:
             out[name][1] = ln.strip()
@@ -206,8 +214,8 @@ STAGE_CUTS = {1: "pack", 2: "keys and node prefix", 3: "window minimum"}
 
 
 def start_stage_build():
-    """Start nvcc on csrc/rows_stages.cu (the tiled kernels cut after each
-    stage) into a library of its own; returns (path, process)."""
+    """Start nvcc on csrc/rows_stages.cu (the four tiled kernels cut after
+    each stage) into a library of its own; returns (path, process)."""
     from phi_tpu_torch.sketch import kernels as tk
     os.makedirs(BUILD, exist_ok=True)
     so = os.path.join(BUILD, "librows-stages.so")
@@ -228,37 +236,28 @@ def stage_library(build):
     lib = ctypes.CDLL(so)
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     inputs = [vp, vp, vp, vp, vp, cl, ci, ci, ci, ci]
-    lib.phi_rows2_cut_launch.argtypes = inputs + [ci, vp, vp, vp, vp]
-    lib.phi_rows3w_cut_launch.argtypes = inputs + [ci, ci, vp, vp, vp, vp,
-                                                   vp]
-    for fn in (lib.phi_rows2_cut_launch, lib.phi_rows3w_cut_launch):
+    pos_inputs = [vp, vp, vp, cl, ci, ci, ci, ci]
+    for name, args in (("rows3", inputs + [ci, ci, vp, vp, vp, vp]),
+                       ("rows3w", inputs + [ci, ci, vp, vp, vp, vp, vp]),
+                       ("rows2", inputs + [ci, vp, vp, vp, vp]),
+                       ("rows", pos_inputs + [ci, vp, vp, vp, vp])):
+        fn = getattr(lib, f"phi_{name}_cut_launch")
+        fn.argtypes = args
         fn.restype = ci
     return lib
 
 
 def stage_split(lib, name: str, args, *params) -> dict:
-    """The tiled kernel `name` (rows2 or rows3w), its three stage cuts and
-    its direct-scan entry point, each launched on preallocated outputs,
-    timed in turns (full, 1, 2, 3, ref, ref, 3, 2, 1, full; 10 samples of
-    5 calls back to back each, so the stages' device time is not blurred
-    by the host's). Returns the medians of 20 in ms and each stage's time
-    (a cut's median minus the cut's before it)."""
-    import torch
+    """The tiled kernel `name`, its three stage cuts and its direct-scan
+    entry point, each launched on the outputs of one wrapper call, timed in
+    turns (full, 1, 2, 3, ref, ref, 3, 2, 1, full; 10 samples of 5 calls
+    back to back each, so the stages' device time is not blurred by the
+    host's). Returns the medians of 20 in ms and each stage's time (a cut's
+    median minus the cut's before it)."""
     from phi_tpu_torch.sketch import kernels as tk
-    codes, _, _, _, node_off = args
-    R, SB = node_off.shape
+    SB = args[0].shape[1] // tk.BLK - 1
     k, w, ints = params[0], params[1], params[2:]
-    cuda = dict(device=codes.device)
-    if name == "rows3w":
-        n = SB * params[2]
-        outs = tuple(torch.empty((R, n), dtype=torch.int64, **cuda)
-                     for _ in range(3)) + (
-            torch.empty((R, SB), dtype=torch.int32, **cuda),)
-    else:
-        n = SB * tk.BLK
-        outs = (torch.empty((R, n), dtype=torch.int64, **cuda),
-                torch.empty((R, n), dtype=torch.int64, **cuda),
-                torch.empty((R, n), dtype=torch.bool, **cuda))
+    outs = getattr(tk, f"sketch_{name}")(*args, *params)
     runs = {"full": lambda: tk._launch(name, args, SB, k, w, ints, outs),
             "ref": lambda: tk._launch(f"{name}_ref", args, SB, k, w, ints,
                                       outs)}
@@ -272,6 +271,8 @@ def stage_split(lib, name: str, args, *params) -> dict:
     med = {str(key): median(t) for key, t in times.items()}
     cuts = [0.0] + [med[str(c)] for c in STAGE_CUTS] + [med["full"]]
     stages = list(STAGE_CUTS.values()) + ["emit and output"]
+    if name == "rows":  # no node plane
+        stages[1] = "keys"
     return {"ms": med, "stage_ms": {s: cuts[i + 1] - cuts[i]
                                     for i, s in enumerate(stages)}}
 
@@ -286,9 +287,8 @@ def same_outputs(label: str, want, got) -> None:
 
 
 def compare(name: str, args, *params) -> int:
-    """Kernel `name` (rows3, rows3w or rows2) against its twin on the same
-    card tensors; returns the max abs error over all outputs and raises if
-    they differ."""
+    """Kernel `name` against its twin on the same card tensors; returns the
+    max abs error over all outputs and raises if they differ."""
     import torch
     from phi_tpu_torch.sketch import kernels as tk
     want = getattr(tk, f"sketch_{name}_torch")(*args, *params)
@@ -506,10 +506,10 @@ def main() -> int:
     stage_build = start_stage_build()
     tk.build_rows()
     stage_lib = stage_library(stage_build)
-    log(f"rows kernels ({', '.join(KERNELS)}, rows3w_ref, rows2_ref) and "
-        f"their stage cuts built in {time.time() - t0:.3f} s")
+    log(f"rows kernels ({', '.join(INSTANTIATIONS)}) and their stage cuts "
+        f"built in {time.time() - t0:.3f} s")
     ptxas = ptxas_report(tk.build_log())
-    for n in KERNELS + ("rows3w_ref", "rows2_ref"):
+    for n in INSTANTIATIONS:
         used, spill = ptxas.get(n, ("not found", ""))
         log(f"ptxas {n}: {used}; {spill}; {tk.occupancy(n)} resident "
             f"blocks per SM")
@@ -544,7 +544,7 @@ def main() -> int:
                      getattr(tk, f"sketch_{name}")(*args, *params))
 
     def turns(name, args, *params):
-        """The tiled design and the direct scan in turns: old, new, new,
+        """The tiled kernel and its direct scan in turns: old, new, new,
         old, 10 events of one call each; ms[name] is the tiled design's
         median. The same in turns with 5 calls per pair of events is
         logged beside, then the stage split."""
@@ -572,11 +572,11 @@ def main() -> int:
 
     ref_ms = {}
     args = rows_inputs(1, sb)
-    timed("rows3", args, 31, 25, tk.block_cap(25))
+    turns("rows3", args, 31, 25, tk.block_cap(25))
     turns("rows3w", args, 35, 25, tk.block_cap(25))
     turns("rows2", args, 31, 25)
     pos_args = (args[0], args[2], args[3])
-    timed("rows", pos_args, 31, 25)
+    turns("rows", pos_args, 31, 25)
     check("rows", pos_args, 21, 11)
     import numpy as np
     rng = np.random.default_rng(8)
@@ -594,18 +594,24 @@ def main() -> int:
     log(f"rows3 k=21 w=11 (C={tk.block_cap(11)} and C=256, max cnt "
         f"{int(cnt.max())}) and rows3w k=63 w=11: equal to twin")
     edge = edge_inputs(3)
-    for k, w in ((31, 25), (31, 99), (21, 1), (15, 16), (20, 33), (20, 34)):
+    edge_pos = (edge[0], edge[2], edge[3])
+    narrow_kw = ((31, 25), (31, 99), (21, 1), (15, 16), (20, 33), (20, 34))
+    for k, w in narrow_kw:
         against_ref("rows2", edge, k, w)
+        against_ref("rows3", edge, k, w, tk.block_cap(w))
+        against_ref("rows", edge_pos, k, w)
+    against_ref("rows3", edge, 21, 11, 64)
     for k, w, C in ((35, 25, tk.block_cap(25)), (63, 67, tk.block_cap(67)),
                     (40, 1, tk.BLK), (32, 11, 64), (40, 34, tk.block_cap(34))):
         against_ref("rows3w", edge, k, w, C)
-    cnt = tk.sketch_rows3w(*edge, 32, 11, 64)[3]
-    if not bool((cnt > 64).any()):
-        return fail("the rows3w cnt > C edge case did not overflow C")
-    log("rows2 and rows3w equal to twin and to the direct scan on the edge "
-        "rows (k, w) = (31, 25), (31, 99), (21, 1), (15, 16), (20, 33), "
-        "(20, 34); (35, 25), (63, 67), (40, 1), (32, 11) with C = 64, "
-        "(40, 34)")
+    for kern, cnt in (("rows3", tk.sketch_rows3(*edge, 21, 11, 64)[2]),
+                      ("rows3w", tk.sketch_rows3w(*edge, 32, 11, 64)[3])):
+        if not bool((cnt > 64).any()):
+            return fail(f"the {kern} cnt > C edge case did not overflow C")
+    log(f"rows2, rows3 and rows equal to twin and to the direct scan on the "
+        f"edge rows (k, w) = {', '.join(map(str, narrow_kw))}, and rows3 "
+        f"(21, 11) with C = 64; rows3w (35, 25), (63, 67), (40, 1), (32, 11) "
+        f"with C = 64, (40, 34)")
 
     # --- phase 3: small instance, cuda against cpu ---
     from phi_tpu_torch.eval import build_instance

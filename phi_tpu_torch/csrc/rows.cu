@@ -43,54 +43,62 @@
 //     (base_node + exclusive prefix of per-block node-start totals), and the
 //     block scans its own node-start plane.
 //
-// The direct-scan design (rows_kernel: rows3, rows, seq, and rows2 and
-// rows3w under the entry points phi_rows2_ref_launch and
-// phi_rows3w_ref_launch, which only the card checks call). Codes, the node
-// prefix and the k-mer keys of the whole block plus its halo live in shared
-// memory: ~108 KB with 8-byte keys (two blocks of 256 threads per SM; ~75 KB
-// for rows/seq, which hold no node prefix), ~175 KB with 16-byte keys (one
-// block of 512 threads per SM). Each key is built in k steps; each thread
-// owns LPT consecutive lanes and runs the direct O(w) window scan for each
-// (32 threads of a warp read keys LPT lanes apart: a 16-way or 8-way bank
-// conflict on every load), and emitted lanes scan again when they write.
-// The compaction is a block-wide exclusive scan of per-thread emit counts;
-// the full-lane variants keep per-thread emit masks in shared memory and
-// write in a second, coalesced pass.
-//
-// The tiled design (tiled_kernel: rows2 and rows3w) takes the TPU kernel's
-// algorithm and lays it out for warps. The block walks its 8192 lanes in
-// tiles of TILE = 1024 lanes, each with a right halo of k + w - 2 lanes;
-// consecutive lanes sit on consecutive threads at every stage, so no warp
-// reads shared memory at a conflicting stride:
+// The tiled design (tiled_kernel: rows3, rows3w, rows2 and rows) takes the
+// TPU kernel's algorithm and lays it out for warps. The block walks its
+// 8192 lanes in tiles of TILE = 1024 lanes, each with a right halo of
+// k + w - 2 lanes; consecutive lanes sit on consecutive threads at every
+// stage, so no warp reads shared memory at a conflicting stride:
 //   * the block's codes (lanes -1 .. 8383) are packed once, 2 bits a base,
 //     into a big-endian stream and a little-endian stream of complemented
-//     bases (4 KB; one thread per 32-base word, from two 16-byte loads); a
-//     lane's forward and reverse-complement keys are funnel shifts of two
-//     (k <= 31) or three (k > 31) words of each, O(1) per lane;
+//     bases (4 KB; one thread per 32-base word, from two 16-byte loads, so
+//     codes must be 16-byte aligned); a lane's forward and
+//     reverse-complement keys are funnel shifts of two (k <= 31) or three
+//     (k > 31) words of each, O(1) per lane;
 //   * the window minimum is the tuple (key, lane) minimum with ties to the
 //     rightmost lane, by log-doubling (floor(log2 w) steps, then one
 //     combine of two overlapping windows); the order is total, so this
 //     selects what the direct scan selects, once per lane;
 //   * the node prefix is a block-wide scan per tile, carried from tile to
-//     tile as a running sum;
+//     tile as a running sum; rows, whose passenger is the selected k-mer's
+//     row-local start (POS), reads no node plane and holds no prefix;
 //   * emit flags are computed in parallel, one lane per thread, from the
 //     selections of lanes p and p - 1 (lane P0 - 1 of a tile is one more
 //     window of the tile, so no selection is carried);
-//   * rows2 writes full lanes, coalesced; rows3w compacts in lane order, a
-//     __ballot_sync and __popc per warp and round, one warp's scan of the
-//     tile's 32 warp counts, and a running block offset.
-// Shared memory is ~31 KB (8-byte keys) and ~49 KB (16-byte keys): with
-// __launch_bounds__(256, 4) at least four blocks of 256 threads fit on an
-// SM for both. What keeps it from its bound is the shared-memory traffic of
-// the doubling passes (each key and entry read twice and written once per
+//   * rows2 and rows write full lanes, coalesced; rows3 and rows3w compact
+//     in lane order, a __ballot_sync and __popc per warp and round, one
+//     warp's scan of the tile's 32 warp counts, and a running block offset.
+// Shared memory is ~31 KB with 8-byte keys and the node prefix (rows3,
+// rows2), ~27 KB without it (rows) and ~49 KB with 16-byte keys (rows3w):
+// at 48 registers, four blocks of 256 threads fit on an SM for rows3w and
+// five for the others. rows3 is an instantiation of the design as rows3w
+// and rows2 run it, with nothing tuned. rows asks ptxas for five resident
+// blocks (tiled_minb): left at four, ptxas spent more registers on it and
+// fit four, and it ran slower when the two builds were timed in turns.
+// What keeps the design from its bound is the shared-memory traffic of the
+// doubling passes (each key and entry read twice and written once per
 // pass) and the block barrier that ends each pass, neither of which the
-// bound counts. The kernel is its stages in a row (TiledBlock); the stage
-// cuts that time them are separate kernels in rows_stages.cu, which the
-// library the wrappers load does not hold. The tensor cores (wgmma) have
-// no work here, since the kernel compares integers and multiplies no
-// matrices; TMA or cp.async staging would hide the load of 2-3 bytes per
-// lane, which the bound counts as a few percent of the bytes moved, so
-// neither is used.
+// bound counts. The kernel is its stages in a row (TiledBlock);
+// the stage cuts that time them are separate kernels in rows_stages.cu,
+// which the library the wrappers load does not hold. The tensor cores
+// (wgmma) have no work here, since the kernel compares integers and
+// multiplies no matrices; TMA or cp.async staging would hide the load of
+// 2-3 bytes per lane, which the bound counts as a few percent of the bytes
+// moved, so neither is used.
+//
+// The direct-scan design (rows_kernel) runs seq, whose N flag the 2-bit
+// packing cannot carry, and, under the _ref entry points that only the card
+// checks call, the four tiled functions again, so that the checks can time
+// and compare the two designs. Codes, the node prefix and the k-mer keys
+// of the whole block plus its halo live in shared memory: ~108 KB with
+// 8-byte keys (two blocks of 256 threads per SM; ~75 KB for rows/seq,
+// which hold no node prefix), ~175 KB with 16-byte keys (one block of 512
+// threads per SM). Each key is built in k steps; each thread owns LPT
+// consecutive lanes and runs the direct O(w) window scan for each (32
+// threads of a warp read keys LPT lanes apart: a 16-way or 8-way bank
+// conflict on every load), and emitted lanes scan again when they write.
+// The compaction is a block-wide exclusive scan of per-thread emit counts;
+// the full-lane variants keep per-thread emit masks in shared memory and
+// write in a second, coalesced pass.
 
 #include <cstdint>
 #include <cstring>
@@ -424,7 +432,9 @@ __device__ __forceinline__ void store_key(long long* hi, long long* lo,
 
 constexpr int TILE = 1024;              // lanes per tile
 constexpr int TTHREADS = 256;           // threads of a tiled block
-constexpr int TMINB = 4;                // resident tiled blocks per SM
+// Resident tiled blocks per SM asked of ptxas: four, and five for rows
+// (POS), which would otherwise get more registers and fit only four.
+constexpr int tiled_minb(bool pos) { return pos ? 5 : 4; }
 constexpr int TK = TILE + HALO + 2;     // keys per tile: lanes P0-1 ..
                                         //   P0+TILE+w-2 of tile P0
 constexpr int TS = TILE + HALO;         // node prefix per tile: lanes P0 ..
@@ -467,9 +477,10 @@ __device__ __forceinline__ void packed_key(const u64* fw, const u64* rv,
 // One block of the tiled design: its state, and its stages in the order
 // tiled_kernel runs them (pack; for each tile keys_and_prefix, window_min,
 // output, next_tile; finish). K: u64 (k <= 31) or Key128v (31 < k <= 63);
-// COMPACT: C-slot output (else full lanes). The interval passenger, no N
-// codes.
-template <typename K, bool COMPACT>
+// COMPACT: C-slot output (else full lanes); POS: the selected k-mer's
+// row-local start rides along (else its walk-position interval, from the
+// node plane, which POS never reads). No N codes.
+template <typename K, bool COMPACT, bool POS>
 struct TiledBlock {
   static constexpr int THREADS = TTHREADS;
   static constexpr int WARPS = THREADS / 32;
@@ -477,6 +488,7 @@ struct TiledBlock {
   static constexpr bool WIDE = sizeof(K) > sizeof(u64);
   static_assert(RPT * WARPS <= 32, "one warp scans a tile's warp counts");
   static_assert(TILE % THREADS == 0 && BLK % TILE == 0, "whole tiles");
+  static_assert(!(COMPACT && POS), "compaction carries the interval");
 
   // the kernel's __grid_constant__ parameter: its pointers are read from
   // the parameter bank where they are used (a copy here holds them in
@@ -486,11 +498,11 @@ struct TiledBlock {
   const long long blk, out_off;
   const long long nvb;         // valid lanes of the block
   const int32_t* const node_off;
-  const uint8_t* const crow;   // the block's codes and node plane
-  const uint8_t* const nrow;
+  const uint8_t* const crow;   // the block's codes and node plane (null
+  const uint8_t* const nrow;   //   under POS)
   K* const ka;                 // shared memory: keys, two buffers
   K* const kb;
-  int* const sc;               // the tile's node prefix
+  int* const sc;               // the tile's node prefix (none under POS)
   u64* const fw;               // the block's packed codes, both streams
   u64* const rv;
   uint16_t* const pa;          // the keys' entries, two buffers
@@ -515,17 +527,23 @@ struct TiledBlock {
         node_off(in.node_off),
         crow(in.codes + (long long)blockIdx.y * in.row_lanes +
              (long long)blockIdx.x * BLK),
-        nrow(in.nd + (long long)blockIdx.y * in.row_lanes +
-             (long long)blockIdx.x * BLK),
+        nrow(POS ? nullptr
+                 : in.nd + (long long)blockIdx.y * in.row_lanes +
+                       (long long)blockIdx.x * BLK),
         ka(reinterpret_cast<K*>(smem)), kb(ka + TK),
         sc(reinterpret_cast<int*>(kb + TK)),
-        fw(reinterpret_cast<u64*>(sc + TS)), rv(fw + NW),
+        fw(reinterpret_cast<u64*>(sc + (POS ? 0 : TS))), rv(fw + NW),
         pa(reinterpret_cast<uint16_t*>(rv + NW)), pb(pa + TK),
         warp_tot(wt), wofs(wo) {}
 
+  __device__ __forceinline__ void dead_passenger(long long o) const {
+    if constexpr (POS) out.pos[o] = -1;
+    else out.se[o] = DEAD_SE;
+  }
+
   __device__ __forceinline__ void dead(long long o) const {
     store_dead(out.key_hi, out.key_lo, o, WIDE);
-    out.se[o] = DEAD_SE;
+    dead_passenger(o);
     if constexpr (!COMPACT) out.emit[o] = 0;
   }
 
@@ -569,7 +587,7 @@ struct TiledBlock {
       rv[m] = rc;
     }
     __syncthreads();
-    nbase = node_off[blk];
+    if constexpr (!POS) nbase = node_off[blk];
   }
 
   // Whether the block's windows end before tile P0; the full-lane variants
@@ -583,25 +601,29 @@ struct TiledBlock {
   }
 
   // Entry i = lane - P0 + 1: the keys of lanes P0-1 .. P0+TILE+w-2 with
-  // their entry, and the inclusive node-start prefix of lanes P0 ..
-  // P0+TS-1 counted from lane 0 of the block.
+  // their entry, and (not under POS) the inclusive node-start prefix of
+  // lanes P0 .. P0+TS-1 counted from lane 0 of the block.
   __device__ __forceinline__ void keys_and_prefix(int P0) const {
     for (int i = tid; i < TILE + w; i += THREADS) {
       packed_key(fw, rv, P0 + i + 31, k, &ka[i]);
       pa[i] = (uint16_t)i;
     }
-    for (int i = tid; i < TS; i += THREADS) sc[i] = nrow[P0 + i];
-    __syncthreads();
-    constexpr int SPT = (TS + THREADS - 1) / THREADS;  // odd: no conflicts
-    const int lo = tid * SPT;
-    const int hi = min(lo + SPT, TS);
-    int sum = 0;
-    for (int i = lo; i < hi; ++i) sum += sc[i];
-    int total;
-    int run = carry + block_exclusive_scan<THREADS>(sum, warp_tot, &total);
-    for (int i = lo; i < hi; ++i) {
-      run += sc[i];
-      sc[i] = run;
+    if constexpr (POS) {
+      __syncthreads();  // the keys, before the first doubling step
+    } else {
+      for (int i = tid; i < TS; i += THREADS) sc[i] = nrow[P0 + i];
+      __syncthreads();
+      constexpr int SPT = (TS + THREADS - 1) / THREADS;  // odd: no conflicts
+      const int lo = tid * SPT;
+      const int hi = min(lo + SPT, TS);
+      int sum = 0;
+      for (int i = lo; i < hi; ++i) sum += sc[i];
+      int total;
+      int run = carry + block_exclusive_scan<THREADS>(sum, warp_tot, &total);
+      for (int i = lo; i < hi; ++i) {
+        run += sc[i];
+        sc[i] = run;
+      }
     }
   }
 
@@ -643,7 +665,8 @@ struct TiledBlock {
       s_k = d_k;
       s_p = d_p;
     }
-    if (w == 1) __syncthreads();  // no step above published the node prefix
+    // w = 1 runs no step above to publish the node prefix
+    if (!POS && w == 1) __syncthreads();
     src = s_k;
     ps = s_p;
   }
@@ -656,6 +679,17 @@ struct TiledBlock {
     return (long long)(((unsigned)s0 << 6) | span);
   }
 
+  // The passenger of the window at entry i of tile P0 into output o: the
+  // packed interval, or under POS the selected k-mer's row-local start.
+  __device__ __forceinline__ void passenger(long long o, int P0,
+                                            int i) const {
+    if constexpr (POS) {
+      out.pos[o] = (int32_t)(blockIdx.x * BLK + P0 + ps[i] - 1);
+    } else {
+      out.se[o] = packed_se(i);
+    }
+  }
+
   // Lane p = P0 + j (window j + 1) emits when it is valid and its
   // selection differs from lane p - 1's or lane p - 1 is not valid.
   __device__ __forceinline__ bool emits(int P0, int p) const {
@@ -664,9 +698,9 @@ struct TiledBlock {
     return p < nvb && (key_ne(src[j + 1], src[j]) || !pvalid);
   }
 
-  // rows2: full lanes, coalesced. rows3w: the emitted lanes compacted in
-  // lane order (rounds, then warps, then lanes) after the slots of earlier
-  // tiles.
+  // Full lanes (rows2, rows), coalesced; or (rows3, rows3w) the emitted
+  // lanes compacted in lane order (rounds, then warps, then lanes) after
+  // the slots of earlier tiles.
   __device__ __forceinline__ void output(int P0) {
     if constexpr (!COMPACT) {
       for (int j = tid; j < TILE; j += THREADS) {
@@ -674,10 +708,10 @@ struct TiledBlock {
         const long long o = out_off + p;
         if (p < nvb) {
           store_key(out.key_hi, out.key_lo, o, src[j + 1]);
-          out.se[o] = packed_se(j + 1);
+          passenger(o, P0, j + 1);
         } else {
           store_dead(out.key_hi, out.key_lo, o, WIDE);
-          out.se[o] = DEAD_SE;
+          dead_passenger(o);
         }
         out.emit[o] = (uint8_t)emits(P0, p);
       }
@@ -718,12 +752,12 @@ struct TiledBlock {
   }
 
   __device__ __forceinline__ void next_tile() {
-    carry = sc[TILE - 1];
+    if constexpr (!POS) carry = sc[TILE - 1];
     __syncthreads();  // the next tile overwrites the shared arrays
   }
 
-  // rows3w: the slots past the count (disjoint from the slots written
-  // above), and the count.
+  // rows3, rows3w: the slots past the count (disjoint from the slots
+  // written above), and the count.
   __device__ __forceinline__ void finish() const {
     if constexpr (COMPACT) {
       for (int i = slot0 + tid; i < C; i += THREADS) dead(out_off + i);
@@ -732,20 +766,20 @@ struct TiledBlock {
   }
 };
 
-template <typename K>
+template <typename K, bool POS>
 constexpr size_t tiled_smem() {
-  return 2 * sizeof(K) * TK + sizeof(int) * TS + 2 * sizeof(u64) * NW +
-         2 * sizeof(uint16_t) * TK;
+  return 2 * sizeof(K) * TK + (POS ? 0 : sizeof(int) * TS) +
+         2 * sizeof(u64) * NW + 2 * sizeof(uint16_t) * TK;
 }
 
-template <typename K, bool COMPACT>
-__global__ void __launch_bounds__(TTHREADS, TMINB)
+template <typename K, bool COMPACT, bool POS>
+__global__ void __launch_bounds__(TTHREADS, tiled_minb(POS))
 tiled_kernel(const __grid_constant__ RowsIn in,
              const __grid_constant__ RowsOut out) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int warp_tot[TTHREADS / 32];
   __shared__ int wofs[COMPACT ? 32 : 1];
-  TiledBlock<K, COMPACT> t(in, out, smem, warp_tot, wofs);
+  TiledBlock<K, COMPACT, POS> t(in, out, smem, warp_tot, wofs);
   if (t.past_block()) return;
   t.pack();
   for (int P0 = 0; P0 < BLK && !t.past_tile(P0); P0 += TILE) {
@@ -762,37 +796,59 @@ constexpr size_t rows_smem() {
   return sizeof(K) * NK + (POS ? 0 : sizeof(int) * NS) + NC;
 }
 
-template <typename F>
-int set_smem(F* kern, size_t smem) {
-  return (int)cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// A kernel instantiation with its block size and dynamic shared memory.
+struct Variant {
+  void (*kern)(RowsIn, RowsOut);
+  int threads;
+  size_t smem;
+};
+
+template <typename K, bool COMPACT, bool POS>
+Variant tiled() {
+  return {tiled_kernel<K, COMPACT, POS>, TTHREADS, tiled_smem<K, POS>()};
 }
 
 template <typename K, bool COMPACT, bool POS, bool NCODE, int THREADS>
-int launch(const RowsIn& in, const RowsOut& out, int R, void* stream) {
-  constexpr size_t smem = rows_smem<K, POS>();
-  auto* kern = rows_kernel<K, COMPACT, POS, NCODE, THREADS>;
-  if (int err = set_smem(kern, smem)) return err;
-  dim3 grid(in.SB, R);
-  kern<<<grid, THREADS, smem, (cudaStream_t)stream>>>(in, out);
-  return (int)cudaGetLastError();
+Variant direct() {
+  return {rows_kernel<K, COMPACT, POS, NCODE, THREADS>, THREADS,
+          rows_smem<K, POS>()};
 }
 
-template <typename K, bool COMPACT>
-int launch_tiled(const RowsIn& in, const RowsOut& out, int R, void* stream) {
-  constexpr size_t smem = tiled_smem<K>();
-  auto* kern = tiled_kernel<K, COMPACT>;
-  if (int err = set_smem(kern, smem)) return err;
-  dim3 grid(in.SB, R);
-  kern<<<grid, TTHREADS, smem, (cudaStream_t)stream>>>(in, out);
-  return (int)cudaGetLastError();
+// The nine kernels by their entry point's name: four tiled, seq, and the
+// direct scans of the four tiled functions (the _ref entry points, which
+// only the card checks call; the main path never does).
+Variant variant(const char* name) {
+  static const struct {
+    const char* name;
+    Variant v;
+  } table[] = {
+      {"rows3", tiled<u64, true, false>()},
+      {"rows3w", tiled<Key128v, true, false>()},
+      {"rows2", tiled<u64, false, false>()},
+      {"rows", tiled<u64, false, true>()},
+      {"seq", direct<u64, false, true, true, 256>()},
+      {"rows3_ref", direct<u64, true, false, false, 256>()},
+      {"rows3w_ref", direct<Key128, true, false, false, 512>()},
+      {"rows2_ref", direct<u64, false, false, false, 256>()},
+      {"rows_ref", direct<u64, false, true, false, 256>()},
+  };
+  for (const auto& e : table)
+    if (!strcmp(name, e.name)) return e.v;
+  return {nullptr, 0, 0};
 }
 
-template <typename F>
-int occupancy(F* kern, int threads, size_t smem, int* blocks) {
-  if (int err = set_smem(kern, smem)) return err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern,
-                                                            threads, smem);
+int set_smem(const Variant& v) {
+  return (int)cudaFuncSetAttribute(
+      v.kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)v.smem);
+}
+
+int launch(const char* name, const RowsIn& in, const RowsOut& out, int R,
+           void* stream) {
+  const Variant v = variant(name);
+  if (int err = set_smem(v)) return err;
+  dim3 grid(in.SB, R);
+  v.kern<<<grid, v.threads, v.smem, (cudaStream_t)stream>>>(in, out);
+  return (int)cudaGetLastError();
 }
 
 RowsIn rows_in(const void* codes, const void* nd, const void* nvalid,
@@ -808,109 +864,82 @@ RowsIn rows_in(const void* codes, const void* nd, const void* nvalid,
 
 }  // namespace
 
-// C entry points (ctypes): each launches on `stream` and returns
-// cudaGetLastError().
-extern "C" int phi_rows3_launch(const void* codes, const void* nd,
-                                const void* nvalid, const void* left,
-                                const void* node_off, long long row_lanes,
-                                int R, int SB, int k, int w, int C,
-                                void* out_key, void* out_se, void* out_cnt,
-                                void* stream) {
-  const RowsOut out{static_cast<long long*>(out_key), nullptr,
-                    static_cast<long long*>(out_se),
-                    static_cast<int32_t*>(out_cnt), nullptr, nullptr};
-  return launch<u64, true, false, false, 256>(
-      rows_in(codes, nd, nvalid, left, node_off, row_lanes, SB, k, w, C), out,
-      R, stream);
-}
+// C entry points (ctypes), phi_<name>_launch: each launches on `stream` and
+// returns cudaGetLastError(). Compacted outputs are [R, SB*C] with cnt
+// [R, SB]; full-lane outputs [R, SB*BLK].
+#define PHI_ROWS3_ENTRY(N)                                                    \
+  extern "C" int phi_##N##_launch(                                           \
+      const void* codes, const void* nd, const void* nvalid,                 \
+      const void* left, const void* node_off, long long row_lanes, int R,    \
+      int SB, int k, int w, int C, void* out_key, void* out_se,              \
+      void* out_cnt, void* stream) {                                         \
+    const RowsOut out{static_cast<long long*>(out_key), nullptr,             \
+                      static_cast<long long*>(out_se),                       \
+                      static_cast<int32_t*>(out_cnt), nullptr, nullptr};     \
+    return launch(#N, rows_in(codes, nd, nvalid, left, node_off, row_lanes,  \
+                              SB, k, w, C),                                  \
+                  out, R, stream);                                           \
+  }
+PHI_ROWS3_ENTRY(rows3)
+PHI_ROWS3_ENTRY(rows3_ref)
 
-// rows3w and rows2 run the tiled design; the _ref entry points run the
-// same functions in the direct-scan design (the card checks time and compare
-// the two; the main path never calls them).
-#define PHI_ROWS3W_ENTRY(NAME, CALL)                                          \
-  extern "C" int NAME(const void* codes, const void* nd, const void* nvalid, \
-                      const void* left, const void* node_off,                \
-                      long long row_lanes, int R, int SB, int k, int w, int C, \
-                      void* out_hi, void* out_lo, void* out_se,              \
-                      void* out_cnt, void* stream) {                         \
+#define PHI_ROWS3W_ENTRY(N)                                                   \
+  extern "C" int phi_##N##_launch(                                           \
+      const void* codes, const void* nd, const void* nvalid,                 \
+      const void* left, const void* node_off, long long row_lanes, int R,    \
+      int SB, int k, int w, int C, void* out_hi, void* out_lo,               \
+      void* out_se, void* out_cnt, void* stream) {                           \
     const RowsOut out{static_cast<long long*>(out_hi),                       \
                       static_cast<long long*>(out_lo),                       \
                       static_cast<long long*>(out_se),                       \
                       static_cast<int32_t*>(out_cnt), nullptr, nullptr};     \
-    return CALL(rows_in(codes, nd, nvalid, left, node_off, row_lanes, SB, k, \
-                        w, C),                                               \
-                out, R, stream);                                             \
+    return launch(#N, rows_in(codes, nd, nvalid, left, node_off, row_lanes,  \
+                              SB, k, w, C),                                  \
+                  out, R, stream);                                           \
   }
-PHI_ROWS3W_ENTRY(phi_rows3w_launch, (launch_tiled<Key128v, true>))
-PHI_ROWS3W_ENTRY(phi_rows3w_ref_launch,
-                 (launch<Key128, true, false, false, 512>))
+PHI_ROWS3W_ENTRY(rows3w)
+PHI_ROWS3W_ENTRY(rows3w_ref)
 
-#define PHI_ROWS2_ENTRY(NAME, CALL)                                           \
-  extern "C" int NAME(const void* codes, const void* nd, const void* nvalid, \
-                      const void* left, const void* node_off,                \
-                      long long row_lanes, int R, int SB, int k, int w,      \
-                      void* out_key, void* out_se, void* out_emit,           \
-                      void* stream) {                                        \
+#define PHI_ROWS2_ENTRY(N)                                                    \
+  extern "C" int phi_##N##_launch(                                           \
+      const void* codes, const void* nd, const void* nvalid,                 \
+      const void* left, const void* node_off, long long row_lanes, int R,    \
+      int SB, int k, int w, void* out_key, void* out_se, void* out_emit,     \
+      void* stream) {                                                        \
     const RowsOut out{static_cast<long long*>(out_key), nullptr,             \
                       static_cast<long long*>(out_se), nullptr,              \
                       static_cast<uint8_t*>(out_emit), nullptr};             \
-    return CALL(rows_in(codes, nd, nvalid, left, node_off, row_lanes, SB, k, \
-                        w, 0),                                               \
-                out, R, stream);                                             \
+    return launch(#N, rows_in(codes, nd, nvalid, left, node_off, row_lanes,  \
+                              SB, k, w, 0),                                  \
+                  out, R, stream);                                           \
   }
-PHI_ROWS2_ENTRY(phi_rows2_launch, (launch_tiled<u64, false>))
-PHI_ROWS2_ENTRY(phi_rows2_ref_launch, (launch<u64, false, false, false, 256>))
+PHI_ROWS2_ENTRY(rows2)
+PHI_ROWS2_ENTRY(rows2_ref)
 
 // rows (2-bit codes) and seq (codes that may hold N): no node plane, the
 // selected k-mer's row-local start rides along; left may be null for seq.
-extern "C" int phi_rows_launch(const void* codes, const void* nvalid,
-                               const void* left, long long row_lanes, int R,
-                               int SB, int k, int w, void* out_key,
-                               void* out_pos, void* out_emit, void* stream) {
-  const RowsOut out{static_cast<long long*>(out_key), nullptr, nullptr,
-                    nullptr, static_cast<uint8_t*>(out_emit),
-                    static_cast<int32_t*>(out_pos)};
-  return launch<u64, false, true, false, 256>(
-      rows_in(codes, nullptr, nvalid, left, nullptr, row_lanes, SB, k, w, 0),
-      out, R, stream);
-}
+#define PHI_POS_ENTRY(N)                                                      \
+  extern "C" int phi_##N##_launch(                                           \
+      const void* codes, const void* nvalid, const void* left,               \
+      long long row_lanes, int R, int SB, int k, int w, void* out_key,       \
+      void* out_pos, void* out_emit, void* stream) {                         \
+    const RowsOut out{static_cast<long long*>(out_key), nullptr, nullptr,    \
+                      nullptr, static_cast<uint8_t*>(out_emit),              \
+                      static_cast<int32_t*>(out_pos)};                       \
+    return launch(#N, rows_in(codes, nullptr, nvalid, left, nullptr,         \
+                              row_lanes, SB, k, w, 0),                       \
+                  out, R, stream);                                           \
+  }
+PHI_POS_ENTRY(rows)
+PHI_POS_ENTRY(rows_ref)
+PHI_POS_ENTRY(seq)
 
-extern "C" int phi_seq_launch(const void* codes, const void* nvalid,
-                              const void* left, long long row_lanes, int R,
-                              int SB, int k, int w, void* out_key,
-                              void* out_pos, void* out_emit, void* stream) {
-  const RowsOut out{static_cast<long long*>(out_key), nullptr, nullptr,
-                    nullptr, static_cast<uint8_t*>(out_emit),
-                    static_cast<int32_t*>(out_pos)};
-  return launch<u64, false, true, true, 256>(
-      rows_in(codes, nullptr, nvalid, left, nullptr, row_lanes, SB, k, w, 0),
-      out, R, stream);
-}
-
-// Resident blocks per SM of one kernel by its entry point's name (rows3,
-// rows3w, rows2, rows, seq, rows3w_ref, rows2_ref) into *blocks; returns a
-// cudaError, or -1 for an unknown name.
+// Resident blocks per SM of the kernel behind phi_<name>_launch into
+// *blocks; returns a cudaError, or -1 for an unknown name.
 extern "C" int phi_rows_occupancy(const char* name, int* blocks) {
-  if (!strcmp(name, "rows3"))
-    return occupancy(rows_kernel<u64, true, false, false, 256>, 256,
-                     rows_smem<u64, false>(), blocks);
-  if (!strcmp(name, "rows3w"))
-    return occupancy(tiled_kernel<Key128v, true>, TTHREADS,
-                     tiled_smem<Key128v>(), blocks);
-  if (!strcmp(name, "rows2"))
-    return occupancy(tiled_kernel<u64, false>, TTHREADS, tiled_smem<u64>(),
-                     blocks);
-  if (!strcmp(name, "rows"))
-    return occupancy(rows_kernel<u64, false, true, false, 256>, 256,
-                     rows_smem<u64, true>(), blocks);
-  if (!strcmp(name, "seq"))
-    return occupancy(rows_kernel<u64, false, true, true, 256>, 256,
-                     rows_smem<u64, true>(), blocks);
-  if (!strcmp(name, "rows3w_ref"))
-    return occupancy(rows_kernel<Key128, true, false, false, 512>, 512,
-                     rows_smem<Key128, false>(), blocks);
-  if (!strcmp(name, "rows2_ref"))
-    return occupancy(rows_kernel<u64, false, false, false, 256>, 256,
-                     rows_smem<u64, false>(), blocks);
-  return -1;
+  const Variant v = variant(name);
+  if (!v.kern) return -1;
+  if (int err = set_smem(v)) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, v.kern, v.threads, v.smem);
 }

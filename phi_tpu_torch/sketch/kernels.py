@@ -24,11 +24,13 @@ top of `csrc/rows.cu`: the full-lane variants and rows3 are bound by the
 bytes they move, rows3w by its 126-bit key and compare operations. Every
 block is independent because the TPU kernels' grid carries (the dedup
 carry, the node-count carry, the roll network compaction) become a one-base
-left context, per-block node offsets and a block-wide scan. rows2 and
-rows3w run the tiled design (an O(1) key per lane, a log-doubling window
-minimum computed once per lane); rows3, rows and seq run the direct-scan
-design, which `sketch_rows2_ref` and `sketch_rows3w_ref` also reach for
-rows2 and rows3w so that the card checks can time and compare the two.
+left context, per-block node offsets and a block-wide scan. rows3, rows3w,
+rows2 and rows run the tiled design (an O(1) key per lane from codes
+packed 2 bits a base, so their codes must be 16-byte aligned; a
+log-doubling window minimum computed once per lane). Only seq, whose N
+flag the packing cannot carry, runs the direct-scan design; the
+`sketch_<name>_ref` entry points (CUDA tensors only) run the four tiled
+functions in it too, so that the card checks can time and compare the two.
 
 Around the kernels, the joins are torch ops: `join_rows3` and `join_rows3w`
 port `_pallas_join_rows3_ck` and `_pallas_join_rows3w_ck` (the 2-bit
@@ -545,11 +547,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     wide = inputs + [ci, vp, vp, vp, vp, vp]
     full = inputs + [vp, vp, vp, vp]
     pos_inputs = [vp, vp, vp, cl, ci, ci, ci, ci]
-    for name, args in (("rows3", inputs + [ci, vp, vp, vp, vp]),
+    narrow = inputs + [ci, vp, vp, vp, vp]
+    pos = pos_inputs + [vp, vp, vp, vp]
+    for name, args in (("rows3", narrow), ("rows3_ref", narrow),
                        ("rows3w", wide), ("rows3w_ref", wide),
                        ("rows2", full), ("rows2_ref", full),
-                       ("rows", pos_inputs + [vp, vp, vp, vp]),
-                       ("seq", pos_inputs + [vp, vp, vp, vp])):
+                       ("rows", pos), ("rows_ref", pos), ("seq", pos)):
         fn = getattr(lib, f"phi_{name}_launch")
         fn.argtypes = args
         fn.restype = ci
@@ -604,30 +607,52 @@ def _on_card(name: str, codes) -> bool:
     return True
 
 
+def _check_aligned(entry: str, codes) -> None:
+    """The tiled kernels pack each row's codes from 16-byte loads."""
+    if codes.data_ptr() % 16:
+        raise ValueError(f"{entry} needs codes aligned to 16 bytes")
+
+
+def _rows3_on_card(entry: str, codes, nd, nvalid, left, node_off, k: int,
+                   w: int, C: int):
+    _check_rows("rows3", codes, nd, nvalid, left, node_off, k, w, C,
+                (1, NARROW_MAX_K))
+    _check_aligned(entry, codes)
+    R, SB = node_off.shape
+    key = torch.empty((R, SB * C), dtype=torch.int64, device=codes.device)
+    se = torch.empty_like(key)
+    cnt = torch.empty((R, SB), dtype=torch.int32, device=codes.device)
+    _launch(entry, (codes, nd, nvalid, left, node_off), SB, k, w, (C,),
+            (key, se, cnt))
+    return key, se, cnt
+
+
 def sketch_rows3(codes, nd, nvalid, left, node_off, k: int, w: int, C: int):
     """rows3 sketch: the CUDA kernel for CUDA tensors, the torch twin for
     CPU tensors (see sketch_rows3_torch for the contract). A CUDA launch
     that fails raises; `sketch_rows3.launches` counts kernel launches."""
     if not _on_card("rows3", codes):
         return sketch_rows3_torch(codes, nd, nvalid, left, node_off, k, w, C)
-    _check_rows("rows3", codes, nd, nvalid, left, node_off, k, w, C,
-                (1, NARROW_MAX_K))
-    R, SB = node_off.shape
-    key = torch.empty((R, SB * C), dtype=torch.int64, device=codes.device)
-    se = torch.empty_like(key)
-    cnt = torch.empty((R, SB), dtype=torch.int32, device=codes.device)
-    _launch("rows3", (codes, nd, nvalid, left, node_off), SB, k, w, (C,),
-            (key, se, cnt))
+    out = _rows3_on_card("rows3", codes, nd, nvalid, left, node_off, k, w, C)
     sketch_rows3.launches += 1
-    return key, se, cnt
+    return out
+
+
+def sketch_rows3_ref(codes, nd, nvalid, left, node_off, k: int, w: int,
+                     C: int):
+    """rows3 in the direct-scan design (CUDA tensors only), for the card
+    checks that time and compare it with the tiled design."""
+    if not _on_card("rows3_ref", codes):
+        raise ValueError("sketch_rows3_ref runs on cuda tensors only")
+    return _rows3_on_card("rows3_ref", codes, nd, nvalid, left, node_off, k,
+                          w, C)
 
 
 def _rows3w_on_card(entry: str, codes, nd, nvalid, left, node_off, k: int,
                     w: int, C: int):
     _check_rows("rows3w", codes, nd, nvalid, left, node_off, k, w, C,
                 (NARROW_MAX_K + 1, WIDE_MAX_K))
-    if codes.data_ptr() % 16:
-        raise ValueError(f"{entry} needs codes aligned to 16 bytes")
+    _check_aligned(entry, codes)
     R, SB = node_off.shape
     hi = torch.empty((R, SB * C), dtype=torch.int64, device=codes.device)
     lo = torch.empty_like(hi)
@@ -666,8 +691,7 @@ def _rows2_on_card(entry: str, codes, nd, nvalid, left, node_off, k: int,
                    w: int):
     _check_rows("rows2", codes, nd, nvalid, left, node_off, k, w, None,
                 (1, NARROW_MAX_K))
-    if codes.data_ptr() % 16:
-        raise ValueError(f"{entry} needs codes aligned to 16 bytes")
+    _check_aligned(entry, codes)
     R, SB = node_off.shape
     key = torch.empty((R, SB * BLK), dtype=torch.int64, device=codes.device)
     se = torch.empty_like(key)
@@ -706,16 +730,29 @@ def _launch_pos(name: str, codes, nvalid, left, SB: int, k: int, w: int):
     return key, pos, emit
 
 
+def _rows_on_card(entry: str, codes, nvalid, left, k: int, w: int):
+    SB = _check_pos("rows", codes, nvalid, left, k, w)
+    _check_aligned(entry, codes)
+    return _launch_pos(entry, codes, nvalid, left, SB, k, w)
+
+
 def sketch_rows(codes, nvalid, left, k: int, w: int):
     """rows (v1) sketch: the CUDA kernel for CUDA tensors, the torch twin
     for CPU tensors (see sketch_rows_torch); `sketch_rows.launches` counts
     kernel launches."""
     if not _on_card("rows", codes):
         return sketch_rows_torch(codes, nvalid, left, k, w)
-    SB = _check_pos("rows", codes, nvalid, left, k, w)
-    out = _launch_pos("rows", codes, nvalid, left, SB, k, w)
+    out = _rows_on_card("rows", codes, nvalid, left, k, w)
     sketch_rows.launches += 1
     return out
+
+
+def sketch_rows_ref(codes, nvalid, left, k: int, w: int):
+    """rows in the direct-scan design (CUDA tensors only), for the card
+    checks that time and compare it with the tiled design."""
+    if not _on_card("rows_ref", codes):
+        raise ValueError("sketch_rows_ref runs on cuda tensors only")
+    return _rows_on_card("rows_ref", codes, nvalid, left, k, w)
 
 
 def sketch_seq(codes, nvalid, k: int, w: int):

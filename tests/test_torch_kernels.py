@@ -54,6 +54,27 @@ def _instance(seed, lengths, repeat=None):
     return seqs, [_chop(rng, len(s)) for s in seqs]
 
 
+def _edge_walks(k, w, case):
+    """Walks at the card kernels' edges. None: walk 0 spans 3 rows (its
+    third row continues across a batch boundary), walk 1 is shorter than
+    one block, walk 2 is periodic. "ties": a poly-A walk of 3 rows and a
+    period-2 walk, where every key ties. "edges": rows whose nvalid is 1,
+    a 1024-lane tile, 8191, 8193, and a walk of 3 rows whose last holds 3
+    tiles; a pad row has none."""
+    if case == "edges":
+        halo = k + w - 2
+        return _instance(k, [halo + n for n in (1, 1024, 8191, 8193,
+                                                2 * SB * tk.BLK + 3072)])
+    seqs, cumlens = _instance(k, [40_000, 5_000, 20_000])
+    if case == "ties":
+        seqs[0] = np.zeros(40_000, np.uint8)
+        seqs[1] = np.resize(np.array([0, 1], np.uint8), 5_000)
+    else:
+        seqs[2] = np.resize(np.array([0, 1, 2, 2, 3, 1, 0], np.uint8),
+                            20_000)
+    return seqs, cumlens
+
+
 def _batches(seqs, cumlens, k, w):
     rows = plan_rows(seqs, k, w, SB)
     n_batches = -(-len(rows) // R)
@@ -115,11 +136,22 @@ def _compare_sketch(seqs, cumlens, k, w, C):
     return saw_cont, saw_over
 
 
-@pytest.mark.parametrize("k,w", [(31, 25), (21, 11), (15, 5)])
-def test_rows3_twin_matches_pallas(k, w):
+@pytest.mark.parametrize("k,w,case", [
+    pytest.param(31, 25, None, id="31-25"),
+    pytest.param(21, 11, None, id="21-11"),
+    pytest.param(15, 5, None, id="15-5"),
+    pytest.param(15, 1, None, id="15-1"),
+    pytest.param(31, 99, None, id="31-99"),
+    pytest.param(31, 25, "ties", id="31-25-ties"),
+    pytest.param(31, 25, "edges", id="31-25-edges")])
+def test_rows3_twin_matches_pallas(k, w, case):
     # walk 0 spans 3 rows, so its third row continues across the boundary
-    # between batches 0 and 1; walk 1 is shorter than one block
-    seqs, cumlens = _instance(k, [40_000, 5_000, 20_000])
+    # between batches 0 and 1; walk 1 is shorter than one block; the tiled
+    # kernel's edges (_edge_walks) too
+    if case is None:
+        seqs, cumlens = _instance(k, [40_000, 5_000, 20_000])
+    else:
+        seqs, cumlens = _edge_walks(k, w, case)
     saw_cont, _ = _compare_sketch(seqs, cumlens, k, w, tk.block_cap(w))
     assert saw_cont
 

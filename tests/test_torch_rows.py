@@ -31,15 +31,26 @@ def _key(hi, lo) -> np.ndarray:
             | np.asarray(lo).astype(np.uint64)).view(np.int64)
 
 
-@pytest.mark.parametrize("k,w", [(17, 9), (31, 25)])
-def test_rows_twin_matches_pallas(k, w):
+@pytest.mark.parametrize("k,w,kind", [
+    pytest.param(17, 9, None, id="17-9"),
+    pytest.param(31, 25, None, id="31-25"),
+    pytest.param(15, 1, None, id="15-1"),
+    pytest.param(31, 99, None, id="31-99"),
+    pytest.param(31, 25, "poly-A", id="31-25-poly-A"),
+    pytest.param(21, 11, "period-2", id="21-11-period-2")])
+def test_rows_twin_matches_pallas(k, w, kind):
     """R = 2, SB = 2: row 0 starts a sequence and fills its row, row 1
     continues it (the reference's cont/carry, the port's left base) and is
-    short."""
+    short. The sequence is random, or poly-A or period 2 (every key
+    ties)."""
     rng = np.random.default_rng(k)
     sb = 2
     sup, row_lanes = sb * BLK, (sb + 1) * BLK
     seq = rng.integers(0, 4, sup + 3000, dtype=np.uint8)
+    if kind == "poly-A":
+        seq[:] = 0
+    elif kind == "period-2":
+        seq = np.resize(np.array([0, 1], np.uint8), len(seq))
     n_short = len(seq) - (k + w - 2) - sup
     rows = [(0, 0, sup, 0), (0, sup, n_short, 1)]
     buf = np.zeros((2, row_lanes), np.uint8)

@@ -24,7 +24,7 @@ from phi_tpu_torch.sketch import kernels as tk  # noqa: E402
 from test_torch_anchors import _compare, _spectrum  # noqa: E402
 from test_torch_anchors import _instance as _graph_instance  # noqa: E402
 from test_torch_kernels import (ROW_LANES, SB, R, _batches,  # noqa: E402
-                                _instance, _ref_codes)
+                                _edge_walks, _instance, _ref_codes)
 from test_torch_pipeline import _mosaic, jax_device_path  # noqa: E402,F401
 from test_torch_rows3w import _dense_chop, _reads  # noqa: E402
 
@@ -47,27 +47,6 @@ def _ref_packed2(seqs, cumlens, batch):
 def _port_tensors(seqs, cumlens, batch):
     return state.batch_tensors(*pack_batch(seqs, cumlens, batch, ROW_LANES,
                                            None), "cpu")
-
-
-def _edge_walks(k, w, case):
-    """Walks at the card kernels' edges. None: walk 0 spans 3 rows (its
-    third row continues across a batch boundary), walk 1 is shorter than
-    one block, walk 2 is periodic. "ties": a poly-A walk of 3 rows and a
-    period-2 walk, where every key ties. "edges": rows whose nvalid is 1,
-    a 1024-lane tile, 8191, 8193, and a walk of 3 rows whose last holds 3
-    tiles; a pad row has none."""
-    if case == "edges":
-        halo = k + w - 2
-        return _instance(k, [halo + n for n in (1, 1024, 8191, 8193,
-                                                2 * SB * tk.BLK + 3072)])
-    seqs, cumlens = _instance(k, [40_000, 5_000, 20_000])
-    if case == "ties":
-        seqs[0] = np.zeros(40_000, np.uint8)
-        seqs[1] = np.resize(np.array([0, 1], np.uint8), 5_000)
-    else:
-        seqs[2] = np.resize(np.array([0, 1, 2, 2, 3, 1, 0], np.uint8),
-                            20_000)
-    return seqs, cumlens
 
 
 @pytest.mark.parametrize("k,w,case", [

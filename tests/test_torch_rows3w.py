@@ -22,7 +22,8 @@ from phi_tpu_torch.sketch import kernels as tk  # noqa: E402
 from test_torch_anchors import _compare, _graphs  # noqa: E402
 from test_torch_anchors import _instance as _graph_instance  # noqa: E402
 from test_torch_kernels import (ROW_LANES, SB, R, _batches,  # noqa: E402
-                                _instance, _ref_codes, _ref_packed)
+                                _edge_walks, _instance, _ref_codes,
+                                _ref_packed)
 from test_torch_pipeline import _mosaic, jax_device_path  # noqa: E402,F401
 
 M32 = 0xFFFFFFFF
@@ -54,7 +55,6 @@ def _port_batch(seqs, cumlens, batch, S_cap):
     pytest.param(40, 1, None, id="40-1"),
     pytest.param(63, 67, None, id="63-67")])
 def test_rows3w_twin_matches_pallas(k, w, case):
-    from test_torch_rows2 import _edge_walks
     seqs, cumlens = _edge_walks(k, w, case)
     C = tk.block_cap(w)
     batches, S_cap = _batches(seqs, cumlens, k, w)
