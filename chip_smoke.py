@@ -6,27 +6,24 @@
 Phases, in order; any failure exits non-zero:
   0. the native host library, then the card (nvidia-smi name and power
      limit) and the torch/CUDA versions; no CUDA device -> exit 1;
-  1. build the rows kernel family (the tiled rows3, rows3w, rows2 and
-     rows, seq, and the direct-scan rows3_ref, rows3w_ref, rows2_ref and
-     rows_ref) from phi_tpu_torch/csrc/rows.cu (into
-     phi_tpu_torch/_build/), and beside it, with its nvcc started at the
-     same time, the stage cuts of the four tiled kernels from
+  1. build the rows kernel family (rows3, rows3w, rows2, rows and seq,
+     five instantiations of one tiled kernel) from
+     phi_tpu_torch/csrc/rows.cu (into phi_tpu_torch/_build/), and beside
+     it, with its nvcc started at the same time, their stage cuts from
      csrc/rows_stages.cu; ptxas's registers, shared memory and spills of
-     each of the nine, and its resident blocks per SM; a spill fails;
+     each of the five, and its resident blocks per SM; a spill fails;
   2. each kernel against its plain torch twin on the card at the production
      shape (R=8, SB=256): rows3 at k=31 w=25 C=2048, plus (k, w) = (21, 11)
      and a cnt > C case; rows3w at k=35 w=25 and k=63 w=11; rows2 and rows
      at k=31 w=25 (rows also at k=21 w=11); seq at k=31 w=25 on one
      5,000,000-base sequence with N runs: outputs array-equal; medians of
      10 CUDA-event timings of one call each (cuda_ms), and each kernel's
-     bound (bound_ms below). The four tiled kernels are also array-equal
-     to their direct-scan entry points and timed against them in turns
-     (old, new, new, old, 10 timings of one call each; the same with 5
-     calls per timing logged beside), their time split by stage
-     (stage_split), and all four are held against their twins and the
-     direct scan on edge rows (ties, nvalid at tile edges, 0 and 1 valid
-     lanes, w = 1, a power of two, and 33 and 34, k + w - 2 = 128,
-     cnt > C);
+     bound (bound_ms below); the median of 10 timings of 5 calls each
+     logged beside, and the time split by stage (stage_split); all five
+     held against their twins on edge rows (ties, nvalid at tile edges, 0
+     and 1 valid lanes, w = 1, a power of two, and 33 and 34,
+     k + w - 2 = 128, cnt > C; for seq N at lane 0, at tile and block
+     edges, in the last window, a run longer than w + k, and everywhere);
   3. the whole path on a small instance (4 haplotypes x 200 kbp) on cuda
      and on cpu: byte-identical FASTA, same report, bound and objective;
   4. the main path at size (49 haplotypes x 5 Mbp, 30 bp nodes, 1x reads,
@@ -48,8 +45,18 @@ Phases, in order; any failure exits non-zero:
   8. the single-sequence kernel at size: seq against its twin on
      haplotype 0 of that instance with N runs written in (one across a
      block boundary); join_sequence on the N-free haplotype 0 against
-     join_many, the same (n_min, positions, ids).
-Phases 4-8 set every kernel's launch count to 0 just before each run and
+     join_many, the same (n_min, positions, ids);
+  9. the host hit path on the 49 x 5 Mbp instance: (a) a copy of its graph
+     with an N run written into the node of walk 0 that the fewest walks
+     visit, at -k 31 -w 25 -R 100: the device anchors hand over, join_many
+     (rows) and the native host join of the N walks run, no rows3 launch,
+     and every walk without N has the phase 7a index's minimizer count,
+     hit positions and ids; (b) -k 35 -w 25 -R 100 --save-index: the
+     native join of every walk (sketch_join_walks), no kernel launch, and
+     phase 5's warm FASTA; (c) -k 31 -w 100 -R 100 (k + w - 2 beyond the
+     kernels' halo): the native join of every walk, no kernel launch, a
+     FASTA.
+Phases 4-9 set every kernel's launch count to 0 just before each run and
 read them just after. The second-to-last line is the kernels JSON, the
 last the device JSON. Instances are generated from a seed into
 phi_tpu_torch/_build/scale/.
@@ -65,6 +72,9 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BUILD = os.path.join(ROOT, "phi_tpu_torch", "_build")
+# the card's name and power limit, as nvidia-smi gives them (set by main),
+# printed beside every time and memory number
+CARD = ""
 
 
 def log(msg: str) -> None:
@@ -165,27 +175,22 @@ def edge_inputs(seed: int, sb: int = 4):
             tk.block_node_offsets(nd, base.to(dev), sb))
 
 
-# The kernel instantiations of rows.cu by their entry point's name: the
-# tiled design's four, seq, and the direct scans of the tiled four.
-INSTANTIATIONS = ("rows3", "rows3w", "rows2", "rows", "seq", "rows3_ref",
-                  "rows3w_ref", "rows2_ref", "rows_ref")
+# The kernel instantiations of rows.cu by their entry point's name.
+KERNELS = ("rows3", "rows3w", "rows2", "rows", "seq")
 
 
 def kernel_name(mangled: str) -> str:
     """The entry point's name of a mangled kernel, from its template
-    arguments (tiled_kernel<K, COMPACT, POS>, rows_kernel<K, COMPACT, POS,
-    NCODE, THREADS>); another symbol keeps its mangled name."""
+    arguments (tiled_kernel<K, COMPACT, POS, NCODE>); another symbol keeps
+    its mangled name."""
     import re
-    args = re.search(r"(tiled|rows)_kernelI(.*)EEv", mangled)
+    args = re.search(r"tiled_kernelI(.*)EEv", mangled)
     if not args:
         return mangled
-    compact, pos, *ncode = (f == "1" for f in re.findall(r"Lb([01])E",
-                                                         args.group(2)))
-    name = ("rows3w" if "Key128" in args.group(2) else "rows3" if compact
-            else "rows" if pos else "rows2")
-    if args.group(1) == "tiled":
-        return name
-    return "seq" if ncode[0] else f"{name}_ref"
+    compact, pos, ncode = (f == "1" for f in re.findall(r"Lb([01])E",
+                                                        args.group(1)))
+    return ("rows3w" if "Key128" in args.group(1) else "rows3" if compact
+            else "seq" if ncode else "rows" if pos else "rows2")
 
 
 def ptxas_report(log: str) -> dict:
@@ -214,8 +219,8 @@ STAGE_CUTS = {1: "pack", 2: "keys and node prefix", 3: "window minimum"}
 
 
 def start_stage_build():
-    """Start nvcc on csrc/rows_stages.cu (the four tiled kernels cut after
-    each stage) into a library of its own; returns (path, process)."""
+    """Start nvcc on csrc/rows_stages.cu (the five kernels cut after each
+    stage) into a library of its own; returns (path, process)."""
     from phi_tpu_torch.sketch import kernels as tk
     os.makedirs(BUILD, exist_ok=True)
     so = os.path.join(BUILD, "librows-stages.so")
@@ -240,7 +245,8 @@ def stage_library(build):
     for name, args in (("rows3", inputs + [ci, ci, vp, vp, vp, vp]),
                        ("rows3w", inputs + [ci, ci, vp, vp, vp, vp, vp]),
                        ("rows2", inputs + [ci, vp, vp, vp, vp]),
-                       ("rows", pos_inputs + [ci, vp, vp, vp, vp])):
+                       ("rows", pos_inputs + [ci, vp, vp, vp, vp]),
+                       ("seq", pos_inputs + [ci, vp, vp, vp, vp])):
         fn = getattr(lib, f"phi_{name}_cut_launch")
         fn.argtypes = args
         fn.restype = ci
@@ -248,42 +254,31 @@ def stage_library(build):
 
 
 def stage_split(lib, name: str, args, *params) -> dict:
-    """The tiled kernel `name`, its three stage cuts and its direct-scan
-    entry point, each launched on the outputs of one wrapper call, timed in
-    turns (full, 1, 2, 3, ref, ref, 3, 2, 1, full; 10 samples of 5 calls
-    back to back each, so the stages' device time is not blurred by the
-    host's). Returns the medians of 20 in ms and each stage's time (a cut's
-    median minus the cut's before it)."""
+    """The kernel `name` and its three stage cuts, each launched on the
+    outputs of one wrapper call, timed in turns (full, 1, 2, 3, 3, 2, 1,
+    full; 10 samples of 5 calls back to back each, so the stages' device
+    time is not blurred by the host's). Returns the medians of 20 in ms and
+    each stage's time (a cut's median minus the cut's before it)."""
     from phi_tpu_torch.sketch import kernels as tk
     SB = args[0].shape[1] // tk.BLK - 1
     k, w, ints = params[0], params[1], params[2:]
     outs = getattr(tk, f"sketch_{name}")(*args, *params)
-    runs = {"full": lambda: tk._launch(name, args, SB, k, w, ints, outs),
-            "ref": lambda: tk._launch(f"{name}_ref", args, SB, k, w, ints,
-                                      outs)}
+    ins = (*args, None) if name == "seq" else args  # seq has no left bases
+    runs = {"full": lambda: tk._launch(name, ins, SB, k, w, ints, outs)}
     for cut in STAGE_CUTS:
         runs[cut] = (lambda c: lambda: tk._launch(
-            f"{name}_cut", args, SB, k, w, ints + (c,), outs, lib))(cut)
-    order = ["full", *STAGE_CUTS, "ref"]
+            f"{name}_cut", ins, SB, k, w, ints + (c,), outs, lib))(cut)
+    order = ["full", *STAGE_CUTS]
     times = {key: [] for key in order}
     for key in order + order[::-1]:
         times[key] += cuda_times(runs[key], inner=5)
     med = {str(key): median(t) for key, t in times.items()}
     cuts = [0.0] + [med[str(c)] for c in STAGE_CUTS] + [med["full"]]
     stages = list(STAGE_CUTS.values()) + ["emit and output"]
-    if name == "rows":  # no node plane
+    if name in ("rows", "seq"):  # no node plane
         stages[1] = "keys"
     return {"ms": med, "stage_ms": {s: cuts[i + 1] - cuts[i]
                                     for i, s in enumerate(stages)}}
-
-
-def same_outputs(label: str, want, got) -> None:
-    """Raise unless two kernels' outputs are array-equal."""
-    import torch
-    for i, (a, b) in enumerate(zip(want, got)):
-        if not torch.equal(a, b):
-            raise AssertionError(f"{label} output {i} differs at "
-                                 f"{int((a != b).sum())} entries")
 
 
 def compare(name: str, args, *params) -> int:
@@ -320,7 +315,6 @@ def run_port(paths, out, argv, device):
     return run_pipeline(paths["gfa"], paths["reads"], out, opt, device=device)
 
 
-KERNELS = ("rows3", "rows3w", "rows2", "rows", "seq")
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # INT32 issue rate: 132 SMs x 64 INT32 lanes per SM (Hopper architecture
 # white paper) x 1.98 GHz boost (the clock behind the data sheet's 67
@@ -382,7 +376,7 @@ def report(label: str, r, wall: float, launches, peak: int, truth: str,
     from phi_tpu_torch.pipeline import gap_tol
     gap = max(0.0, r.decode.true_objective - r.decode.dp_objective)
     es = edit_stats(r.sequence, truth)
-    log(f"{label}: wall {wall:.3f} s; timings "
+    log(f"{label}: wall {wall:.3f} s ({CARD}); timings "
         + json.dumps({k: round(v, 4) for k, v in r.timings.items()}))
     occ = r.anchors.device_occ
     if occ is not None:
@@ -391,7 +385,7 @@ def report(label: str, r, wall: float, launches, peak: int, truth: str,
     else:  # the hit path: tables built on the host from the join hits
         anchors = (f"host anchor tables from the join hits, "
                    f"{len(r.anchors.occ_hap)} retained occurrences")
-    log(f"{label}: peak device memory {peak} B; launches "
+    log(f"{label}: peak device memory {peak} B ({CARD}); launches "
         f"{json.dumps(launches)}; spectrum {r.anchors.spectrum_size} keys; "
         f"{anchors}; solver on "
         f"{r.decode.solver_device}; gap {gap:.3f} (certified "
@@ -410,6 +404,35 @@ def on_cuda(r) -> bool:
 def same_file(a: str, b: str) -> bool:
     with open(a, "rb") as fa, open(b, "rb") as fb:
         return fa.read() == fb.read()
+
+
+SEQ_EDGES = ("lane 0", "tile and block edges", "last window", "long run",
+             "all N")
+
+
+def seq_edge_codes(kind: str, k: int, w: int, seed: int = 0):
+    """A 2.6-block A/C/G/T sequence with N (4) where the tiled seq kernel
+    has its edges: at lane 0; across the tile edge 1023/1024, the block
+    edge 8191/8192 and a tile edge of the next block; in the sequence's
+    last window; a run longer than w + k across a tile edge; or N
+    everywhere."""
+    import numpy as np
+    from phi_tpu_torch.sketch import kernels as tk
+    rng = np.random.default_rng(seed)
+    L = 2 * tk.BLK + 5000
+    codes = rng.integers(0, 4, L, dtype=np.uint8)
+    if kind == "lane 0":
+        codes[0] = 4
+    elif kind == "tile and block edges":
+        for at in (1023, tk.BLK - 1, tk.BLK + 2047):
+            codes[at:at + 2] = 4
+    elif kind == "last window":
+        codes[L - 3] = 4
+    elif kind == "long run":
+        codes[3000:3000 + w + k + 5] = 4
+    else:
+        codes[:] = 4
+    return codes
 
 
 def seq_with_n(codes, rng):
@@ -463,6 +486,32 @@ def join_batches(r, k: int, w: int, dev):
         yield tk.unpack_2bit(words, row_lanes), nv, left
 
 
+def n_walk_copy(graph, src: str, dst: str):
+    """Copy the graph file src to dst with an N run written over the middle
+    half of the node of walk 0 that the fewest walks visit (the longest
+    such node). Returns (the node's name, the walks that visit it)."""
+    import numpy as np
+    wm, wl = graph.walk_mat, graph.walk_len
+    visits = np.bincount(wm[wm >= 0], minlength=graph.n_vtx)
+    walk0 = wm[0, :wl[0]]
+    lens = graph.gfa.node_len[walk0]
+    v = int(walk0[np.lexsort((-lens, visits[walk0]))[0]])
+    name = graph.gfa.seg_names[v]
+    holders = [h for h in range(graph.num_walks)
+               if (wm[h, :wl[h]] == v).any()]
+    with open(src) as fi, open(dst, "w") as fo:
+        for ln in fi:
+            if ln.startswith(f"S\t{name}\t"):
+                parts = ln.rstrip("\n").split("\t")
+                seq = parts[2]
+                q = len(seq) // 4
+                parts[2] = seq[:q] + "N" * (len(seq) - 2 * q) + \
+                    seq[len(seq) - q:]
+                ln = "\t".join(parts) + "\n"
+            fo.write(ln)
+    return name, holders
+
+
 def read_truth(paths) -> str:
     with open(paths["truth"]) as f:
         return "".join(ln.strip() for ln in f if not ln.startswith(">"))
@@ -493,6 +542,8 @@ def main() -> int:
     if not card:
         return fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     print(card, flush=True)
+    global CARD
+    CARD = card
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, devices {torch.cuda.device_count()}")
     if not native_available():
@@ -506,10 +557,10 @@ def main() -> int:
     stage_build = start_stage_build()
     tk.build_rows()
     stage_lib = stage_library(stage_build)
-    log(f"rows kernels ({', '.join(INSTANTIATIONS)}) and their stage cuts "
-        f"built in {time.time() - t0:.3f} s")
+    log(f"rows kernels ({', '.join(KERNELS)}) and their stage cuts "
+        f"built in {time.time() - t0:.3f} s ({card})")
     ptxas = ptxas_report(tk.build_log())
-    for n in INSTANTIATIONS:
+    for n in KERNELS:
         used, spill = ptxas.get(n, ("not found", ""))
         log(f"ptxas {n}: {used}; {spill}; {tk.occupancy(n)} resident "
             f"blocks per SM")
@@ -536,54 +587,32 @@ def main() -> int:
             f"of 10 samples, {card}); bound {bound[name][0]:.4f} ms "
             f"({bound[name][1]}), {bound[name][0] / ms[name]:.1%} reached")
 
-    def against_ref(name, args, *params):
-        """The tiled kernel against the twin and the direct scan."""
-        check(name, args, *params)
-        same_outputs(f"{name} vs {name}_ref {params}",
-                     getattr(tk, f"sketch_{name}_ref")(*args, *params),
-                     getattr(tk, f"sketch_{name}")(*args, *params))
-
-    def turns(name, args, *params):
-        """The tiled kernel and its direct scan in turns: old, new, new,
-        old, 10 events of one call each; ms[name] is the tiled design's
-        median. The same in turns with 5 calls per pair of events is
-        logged beside, then the stage split."""
+    def profiled(name, args, *params):
+        """timed, then the median of 10 timings of 5 calls each (the
+        wrapper's host time hidden behind the card's queue) and the stage
+        split."""
         timed(name, args, *params)
-        new = getattr(tk, f"sketch_{name}")
-        old = getattr(tk, f"sketch_{name}_ref")
-        same_outputs(f"{name} vs {name}_ref {params}", old(*args, *params),
-                     new(*args, *params))
-        b = bound[name][0]
-        for inner in (1, 5):
-            t_old = cuda_times(lambda: old(*args, *params), inner=inner)
-            t_new = cuda_times(lambda: new(*args, *params), inner=inner)
-            t_new += cuda_times(lambda: new(*args, *params), inner=inner)
-            t_old += cuda_times(lambda: old(*args, *params), inner=inner)
-            m_new, m_old = median(t_new), median(t_old)
-            if inner == 1:
-                ms[name], ref_ms[name] = m_new, m_old
-            log(f"{name} {params}: tiled {m_new:.4f} ms ({b / m_new:.1%} of "
-                f"bound), direct scan {m_old:.4f} ms ({b / m_old:.1%}); "
-                f"speedup {m_old / m_new:.2f}x (medians of 20 in turns, "
-                f"{inner} call(s) per pair of events, {card})")
+        kern = getattr(tk, f"sketch_{name}")
+        m5 = median(cuda_times(lambda: kern(*args, *params), inner=5))
+        log(f"{name} {params}: {m5:.4f} ms with 5 calls per pair of events "
+            f"({bound[name][0] / m5:.1%} of bound; median of 10, {card})")
         split = stage_split(stage_lib, name, args, *params)
         log(f"{name} {params} stage split (ms, medians of 20 in turns, 5 "
             f"calls per pair of events, {card}): {json.dumps(split)}")
 
-    ref_ms = {}
     args = rows_inputs(1, sb)
-    turns("rows3", args, 31, 25, tk.block_cap(25))
-    turns("rows3w", args, 35, 25, tk.block_cap(25))
-    turns("rows2", args, 31, 25)
+    profiled("rows3", args, 31, 25, tk.block_cap(25))
+    profiled("rows3w", args, 35, 25, tk.block_cap(25))
+    profiled("rows2", args, 31, 25)
     pos_args = (args[0], args[2], args[3])
-    turns("rows", pos_args, 31, 25)
+    profiled("rows", pos_args, 31, 25)
     check("rows", pos_args, 21, 11)
     import numpy as np
     rng = np.random.default_rng(8)
     seq_args = tk._seq_tensors(
         seq_with_n(rng.integers(0, 4, 5_000_000, dtype=np.uint8), rng),
         31, 25, dev)
-    timed("seq", seq_args, 31, 25)
+    profiled("seq", seq_args, 31, 25)
     args = rows_inputs(2, sb)
     check("rows3", args, 21, 11, tk.block_cap(11))
     check("rows3", args, 21, 11, 256)
@@ -597,21 +626,27 @@ def main() -> int:
     edge_pos = (edge[0], edge[2], edge[3])
     narrow_kw = ((31, 25), (31, 99), (21, 1), (15, 16), (20, 33), (20, 34))
     for k, w in narrow_kw:
-        against_ref("rows2", edge, k, w)
-        against_ref("rows3", edge, k, w, tk.block_cap(w))
-        against_ref("rows", edge_pos, k, w)
-    against_ref("rows3", edge, 21, 11, 64)
+        check("rows2", edge, k, w)
+        check("rows3", edge, k, w, tk.block_cap(w))
+        check("rows", edge_pos, k, w)
+    check("rows3", edge, 21, 11, 64)
     for k, w, C in ((35, 25, tk.block_cap(25)), (63, 67, tk.block_cap(67)),
                     (40, 1, tk.BLK), (32, 11, 64), (40, 34, tk.block_cap(34))):
-        against_ref("rows3w", edge, k, w, C)
+        check("rows3w", edge, k, w, C)
     for kern, cnt in (("rows3", tk.sketch_rows3(*edge, 21, 11, 64)[2]),
                       ("rows3w", tk.sketch_rows3w(*edge, 32, 11, 64)[3])):
         if not bool((cnt > 64).any()):
             return fail(f"the {kern} cnt > C edge case did not overflow C")
-    log(f"rows2, rows3 and rows equal to twin and to the direct scan on the "
-        f"edge rows (k, w) = {', '.join(map(str, narrow_kw))}, and rows3 "
+    seq_kw = ((31, 25), (21, 1), (31, 99))
+    for kind in SEQ_EDGES:
+        for k, w in seq_kw:
+            check("seq", tk._seq_tensors(seq_edge_codes(kind, k, w), k, w,
+                                         dev), k, w)
+    log(f"rows2, rows3 and rows equal to twin on the edge rows (k, w) = "
+        f"{', '.join(map(str, narrow_kw))}, and rows3 "
         f"(21, 11) with C = 64; rows3w (35, 25), (63, 67), (40, 1), (32, 11) "
-        f"with C = 64, (40, 34)")
+        f"with C = 64, (40, 34); seq on N at {', '.join(SEQ_EDGES)}, (k, w) "
+        f"= {', '.join(map(str, seq_kw))}")
 
     # --- phase 3: small instance, cuda against cpu ---
     from phi_tpu_torch.eval import build_instance
@@ -636,7 +671,8 @@ def main() -> int:
     # --- phases 4 and 5: the main path at size, k = 31 and wide k = 35 ---
     t0 = time.time()
     big = build_instance(49, 5_000_000, coverage=1.0)
-    log(f"instance 49 x 5 Mbp, 1x: ready in {time.time() - t0:.1f} s")
+    log(f"instance 49 x 5 Mbp, 1x: ready in {time.time() - t0:.1f} s "
+        f"({card})")
     truth = read_truth(big)
     launches = {}
     for phase, k, kern in ((4, 31, "rows3"), (5, 35, "rows3w")):
@@ -663,7 +699,8 @@ def main() -> int:
     from phi_tpu_torch.ops.search import CUCKOO_MAX_KEYS
     t0 = time.time()
     chrom = build_instance(4, 200_000_000, coverage=1.0)
-    log(f"instance 4 x 200 Mbp, 1x: ready in {time.time() - t0:.1f} s")
+    log(f"instance 4 x 200 Mbp, 1x: ready in {time.time() - t0:.1f} s "
+        f"({card})")
     out = os.path.join(os.path.dirname(chrom["gfa"]), "port.fa")
     r, wall, n, peak = run_counted(chrom, out,
                                    ["-k", "31", "-w", "25", "-R", "100"], dev)
@@ -751,8 +788,49 @@ def main() -> int:
     log(f"phase 8: haplotype 0 ({len(hap0)} bp): sketch_sequence with N "
         f"runs {len(s_hi)} minimizers (positions {int(s_pos.min())}.."
         f"{int(s_pos.max())}), join_sequence {got[0]} minimizers and "
-        f"{len(got[1])} hits == join_many; both in {wall:.3f} s; seq equal "
-        f"to twin on the N-bearing haplotype")
+        f"{len(got[1])} hits == join_many; both in {wall:.3f} s ({card}); "
+        f"seq equal to twin on the N-bearing haplotype")
+
+    # --- phase 9: the host hit path on the 49 x 5 Mbp instance ---
+    n_paths = dict(big, gfa=os.path.join(bdir, "graph_n.gfa"))
+    node, holders = n_walk_copy(save_run.graph, big["gfa"], n_paths["gfa"])
+    log(f"phase 9a: N run written into node {node}, held by "
+        f"{len(holders)} of {save_run.graph.num_walks} walks "
+        f"({holders[:8]}...)")
+    r, wall, n, peak = run_counted(n_paths, os.path.join(bdir, "port_n.fa"),
+                                   flags, dev)
+    report("phase 9a N walks", r, wall, n, peak, truth, 100.0)
+    if n["rows"] <= 0 or n["rows3"] != 0 or not on_cuda(r):
+        return fail(f"phase 9a launches: {json.dumps(n)}")
+    for h in range(save_run.graph.num_walks):
+        if h in holders:
+            continue
+        a, b = r.hits[h], hits[h]
+        if (a[0] != b[0] or not np.array_equal(a[1], b[1])
+                or not np.array_equal(a[2], b[2])):
+            return fail(f"phase 9a: walk {h} (no N) differs from the phase "
+                        f"7a index")
+    log(f"phase 9a: the {save_run.graph.num_walks - len(holders)} walks "
+        f"without N have the phase 7a index's minimizer counts, hit "
+        f"positions and ids")
+    idx35 = os.path.join(bdir, "port_index_k35.npz")
+    phase9 = (("9b k=35 save-index", "k35_save.fa",
+               ["-k", "35", "-w", "25", "-R", "100", "--save-index", idx35]),
+              ("9c k=31 w=100", "w100.fa", ["-k", "31", "-w", "100", "-R",
+                                            "100"]))
+    for label, fname, argv in phase9:
+        out = os.path.join(bdir, f"port_{fname}")
+        r, wall, n, peak = run_counted(big, out, argv, dev)
+        report(f"phase {label}", r, wall, n, peak, truth, 100.0)
+        if any(n.values()) or r.hits is None or not on_cuda(r):
+            return fail(f"phase {label}: not the host join of every walk "
+                        f"(launches {json.dumps(n)})")
+        if not os.path.exists(out):
+            return fail(f"phase {label}: no FASTA")
+    if not same_file(os.path.join(bdir, "port_k35_save.fa"),
+                     os.path.join(bdir, "port_k35_warm.fa")):
+        return fail("phase 9b: FASTA differs from phase 5 (warm)")
+    log("phase 9: 9b FASTA == phase 5 warm FASTA; 9c wrote its FASTA")
 
     replaces = {"rows3": 1000, "rows3w": 1340, "rows2": 688, "rows": 237,
                 "seq": 57}

@@ -20,16 +20,20 @@ The port of `phi_tpu/anchors/device.py`:
   3. the retained multi-vertex occurrences stay on the device for the
      solver (DeviceOcc) and are copied to the host for decode.
 
-Where the reference falls back to its host hit path (N in a walk, more than
-255 haplotypes, k > 31 with a spectrum too large for the cuckoo table or a
-dense node chop, an emit, hit or compaction overflow, unresolved
-ownership) this module raises NotImplementedError: that path is not ported
-yet. The 32-bit hashes run in int64 lanes masked to 32 bits.
+Where the reference leaves the device anchors (N in a walk, more than 255
+haplotypes, k + w - 2 beyond the kernels' halo, k > 31 with a spectrum too
+large for the cuckoo table or a dense node chop, no walk as long as a
+window, an emit, hit or compaction overflow, unresolved ownership),
+join_anchors_device returns None, as the reference does, and says why on
+stderr; the pipeline then takes the host hit path. Any other failure, of
+a kernel's build or launch among them, raises. The 32-bit hashes run in
+int64 lanes masked to 32 bits.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 
 import numpy as np
 import torch
@@ -50,7 +54,14 @@ _POLY1 = 0x9E3779B1
 _POLY2 = 0x85EBCA77
 _MAX_SPAN = 64            # pw table size; packed spans are <= 63
 _OWNER_ROUNDS = 16        # ownership-loop cap (expected ~3-4 rounds)
-_ROADMAP = "ROADMAP.md queue 1, item 6"
+
+
+def _fallback(msg: str) -> None:
+    """Say on stderr why the device anchors hand over to the host hit
+    path (the caller then returns None)."""
+    sys.stderr.write(f"[W::anchors] device path fallback: {msg}; host hit "
+                     f"path\n")
+    sys.stderr.flush()
 
 
 def _fmix32(x: torch.Tensor) -> torch.Tensor:
@@ -168,7 +179,8 @@ def plan_rows(seqs: list[np.ndarray], k: int, w: int,
               super_blocks: int = SUPER_BLOCKS):
     """Split every walk into rows (si, start, n_windows, cont) of at most
     super_blocks * BLK windows. Walks shorter than one window are
-    skipped."""
+    skipped. None when a walk holds N (code >= 4): the 2-bit rows cannot
+    carry it."""
     halo = k + w - 2
     sup = super_blocks * BLK
     rows: list[tuple[int, int, int, int]] = []
@@ -177,9 +189,8 @@ def plan_rows(seqs: list[np.ndarray], k: int, w: int,
         if L < w + k - 1:
             continue
         if (codes >= 4).any():
-            raise NotImplementedError(
-                f"walk {i} contains non-ACGT bases: the host join for N "
-                f"walks is not yet ported to phi_tpu_torch ({_ROADMAP})")
+            _fallback(f"walk {i} contains non-ACGT bases")
+            return None
         for start in range(0, max(1, L - halo), sup):
             rows.append((i, start, min(sup, L - halo - start),
                          1 if start else 0))
@@ -205,22 +216,27 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
                         *, device, rows_per_call: int | None = None,
                         super_blocks: int | None = None):
     """Fused sketch + join + anchor filter over all haplotypes on `device`.
-    Returns (per_hap_minimizers int64 [H], DeviceOcc)."""
+    Returns (per_hap_minimizers int64 [H], DeviceOcc), or None where the
+    reference leaves the device path (module docstring); the caller then
+    takes the host hit path."""
     device = torch.device(device)
     R = rows_per_call or ROWS
     SB = super_blocks or SUPER_BLOCKS
     H = graph.num_walks
     if H > 255:
-        raise NotImplementedError(
-            f"{H} haplotypes > 255 (u8 hap column): the host hit path is "
-            f"not yet ported to phi_tpu_torch ({_ROADMAP})")
+        _fallback(f"{H} haplotypes > 255 (u8 hap column)")
+        return None
     if k + w - 2 > HALO_PAD:
-        raise ValueError(f"k + w - 2 must be <= {HALO_PAD}")
+        _fallback(f"k + w - 2 = {k + w - 2} > {HALO_PAD} (the kernels' "
+                  f"halo)")
+        return None
     if int(graph.walk_len.max(initial=0)) >= 1 << 26:
         raise ValueError("a walk has >= 2^26 positions: the packed "
                          "(s << 6) | span interval overflows 32 bits")
     row_lanes = (SB + 1) * BLK
     rows = plan_rows(seqs, k, w, SB)
+    if not rows:  # N walks, or no walk as long as one window
+        return None
     cumlens = graph.walk_node_cumlen
     # the reference's route choice: v3 needs the cuckoo table and a node
     # chop of at most one start per 4 bases; k > 31 runs only on v3
@@ -233,9 +249,8 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
         why = (f"a read spectrum of {len(sp_hi)} keys that does not fit the "
                f"cuckoo table" if ck is None else
                "a dense node chop (more than one node start per 4 bases)")
-        raise NotImplementedError(
-            f"k={k} > {NARROW_MAX_K} with {why}: the host hit path is not "
-            f"yet ported to phi_tpu_torch ({_ROADMAP})")
+        _fallback(f"k={k} > {NARROW_MAX_K} with {why}")
+        return None
     use_v3 = ck is not None and not dense
     if not use_v3:
         S_cap = None  # v2 uploads the dense node plane
@@ -289,24 +304,21 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
 
     total_hits = int(counts[:, 1].sum())
     if total_hits > CAP - cap_total:
-        raise NotImplementedError(
-            f"hit buffer overflow ({total_hits} hits > {CAP - cap_total}): "
-            f"the host hit path is not yet ported to phi_tpu_torch "
-            f"({_ROADMAP})")
+        _fallback(f"hit buffer overflow ({total_hits} hits > "
+                  f"{CAP - cap_total})")
+        return None
     over_cap = C if use_v3 else emitcap
     if counts[:, 2].max(initial=0) > over_cap:
         what = "rows3 block compaction" if use_v3 else "v2 emitted-lane"
-        raise NotImplementedError(
-            f"{what} overflow (max {int(counts[:, 2].max())} > "
-            f"{'C' if use_v3 else 'emitcap'}={over_cap}): the host hit path "
-            f"is not yet ported to phi_tpu_torch ({_ROADMAP})")
+        _fallback(f"{what} overflow (max {int(counts[:, 2].max())} > "
+                  f"{'C' if use_v3 else 'emitcap'}={over_cap})")
+        return None
     per_hap_min = np.zeros(H, np.int64)
     for b in range(n_batches):
         if int(counts[b, 1].sum()) > cap_total:
-            raise NotImplementedError(
-                f"batch {b}: {int(counts[b, 1].sum())} hits > cap_total="
-                f"{cap_total}: the host hit path is not yet ported to "
-                f"phi_tpu_torch ({_ROADMAP})")
+            _fallback(f"batch {b}: {int(counts[b, 1].sum())} hits > "
+                      f"cap_total={cap_total}")
+            return None
         for j, (si, start, nv, cont) in enumerate(padded[b * R:(b + 1) * R]):
             if si >= 0:
                 per_hap_min[si] += int(counts[b, 0, j])
@@ -314,6 +326,8 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
     walk_mat, _ = state.graph_tensors(graph, device)
     occ = _finalize(buf_se[:total_hits], buf_id[:total_hits],
                     buf_hap[:total_hits], walk_mat, threshold, len(sp_hi), H)
+    if occ is None:
+        return None
     occ.n_hits = total_hits
     return per_hap_min, occ
 
@@ -366,9 +380,10 @@ def _owners(ag1, ag2, aid, n_amb: int, th: float, kbad_uni):
 
 
 def _finalize(se, kid, hap, walk_mat, threshold: float, Ksp: int,
-              H: int) -> DeviceOcc:
+              H: int) -> DeviceOcc | None:
     """The reference's threshold filter over all hits (one pass; the hits
-    of the configurations this package runs fit the device at once)."""
+    of the configurations this package runs fit the device at once); None
+    when the ownership loop leaves groups unresolved."""
     dev = se.device
     th = float(np.float32(threshold * H))
     s, span, g1, g2 = _group_hashes(se, kid, hap, walk_mat)
@@ -390,9 +405,8 @@ def _finalize(se, kid, hap, walk_mat, threshold: float, Ksp: int,
     kbad, unresolved = _owners(g1[amb], g2[amb], kid[amb], n_amb, th,
                                uniform & hot)
     if unresolved:
-        raise NotImplementedError(
-            f"ownership loop unresolved after {_OWNER_ROUNDS} rounds: the "
-            f"host hit path is not yet ported to phi_tpu_torch ({_ROADMAP})")
+        _fallback(f"ownership loop unresolved after {_OWNER_ROUNDS} rounds")
+        return None
     keep = ~kbad[kid]
     per_hap = torch.bincount(hap[keep], minlength=H)
     multi = keep & (span > 0)

@@ -33,7 +33,7 @@
 // compare work, by its operations: a rolling key (O(1) per lane) and
 // log2(w) + 1 doubling steps of a tuple minimum.
 //
-// Both designs run one CUDA block per (row, 8192-lane block); blocks are
+// The kernel runs one CUDA block per (row, 8192-lane block); blocks are
 // independent, so nothing is carried between them the way the TPU grid
 // carries its dedup and node-count state in SMEM:
 //   * the previous window of lane 0 is recomputed from one base to the left
@@ -43,37 +43,46 @@
 //     (base_node + exclusive prefix of per-block node-start totals), and the
 //     block scans its own node-start plane.
 //
-// The tiled design (tiled_kernel: rows3, rows3w, rows2 and rows) takes the
-// TPU kernel's algorithm and lays it out for warps. The block walks its
-// 8192 lanes in tiles of TILE = 1024 lanes, each with a right halo of
-// k + w - 2 lanes; consecutive lanes sit on consecutive threads at every
-// stage, so no warp reads shared memory at a conflicting stride:
+// The tiled design (tiled_kernel, all five variants) takes the TPU
+// kernel's algorithm and lays it out for warps. The block walks its 8192
+// lanes in tiles of TILE = 1024 lanes, each with a right halo of k + w - 2
+// lanes; consecutive lanes sit on consecutive threads at every stage, so
+// no warp reads shared memory at a conflicting stride:
 //   * the block's codes (lanes -1 .. 8383) are packed once, 2 bits a base,
 //     into a big-endian stream and a little-endian stream of complemented
 //     bases (4 KB; one thread per 32-base word, from two 16-byte loads, so
 //     codes must be 16-byte aligned); a lane's forward and
 //     reverse-complement keys are funnel shifts of two (k <= 31) or three
 //     (k > 31) words of each, O(1) per lane;
+//   * seq (NCODE) packs a third stream of one dead bit per base (1 KB),
+//     laid out as the bases: a k-mer is dead when one of its k bits is
+//     set, a funnel shift of two words and a mask, O(1) per lane, and a
+//     dead k-mer's key is DEAD_KEY, above every live key;
 //   * the window minimum is the tuple (key, lane) minimum with ties to the
 //     rightmost lane, by log-doubling (floor(log2 w) steps, then one
 //     combine of two overlapping windows); the order is total, so this
-//     selects what the direct scan selects, once per lane;
+//     selects what a scan of each window would select, once per lane; a
+//     window whose minimum is DEAD_KEY holds no live k-mer and is not
+//     valid;
 //   * the node prefix is a block-wide scan per tile, carried from tile to
-//     tile as a running sum; rows, whose passenger is the selected k-mer's
-//     row-local start (POS), reads no node plane and holds no prefix;
+//     tile as a running sum; rows and seq, whose passenger is the selected
+//     k-mer's row-local start (POS), read no node plane and hold no
+//     prefix;
 //   * emit flags are computed in parallel, one lane per thread, from the
 //     selections of lanes p and p - 1 (lane P0 - 1 of a tile is one more
 //     window of the tile, so no selection is carried);
-//   * rows2 and rows write full lanes, coalesced; rows3 and rows3w compact
-//     in lane order, a __ballot_sync and __popc per warp and round, one
-//     warp's scan of the tile's 32 warp counts, and a running block offset.
+//   * rows2, rows and seq write full lanes, coalesced; rows3 and rows3w
+//     compact in lane order, a __ballot_sync and __popc per warp and round,
+//     one warp's scan of the tile's 32 warp counts, and a running block
+//     offset.
 // Shared memory is ~31 KB with 8-byte keys and the node prefix (rows3,
-// rows2), ~27 KB without it (rows) and ~49 KB with 16-byte keys (rows3w):
-// at 48 registers, four blocks of 256 threads fit on an SM for rows3w and
-// five for the others. rows3 is an instantiation of the design as rows3w
-// and rows2 run it, with nothing tuned. rows asks ptxas for five resident
-// blocks (tiled_minb): left at four, ptxas spent more registers on it and
-// fit four, and it ran slower when the two builds were timed in turns.
+// rows2), ~27 KB without it (rows; ~28 KB for seq with its dead bits) and
+// ~49 KB with 16-byte keys (rows3w): at 48 registers, four blocks of 256
+// threads fit on an SM for rows3w and five for the others. rows3 is an
+// instantiation of the design as rows3w and rows2 run it, with nothing
+// tuned. rows and seq ask ptxas for five resident blocks (tiled_minb):
+// left at four, ptxas spent more registers on rows and fit four, and it
+// ran slower when the two builds were timed in turns.
 // What keeps the design from its bound is the shared-memory traffic of the
 // doubling passes (each key and entry read twice and written once per
 // pass) and the block barrier that ends each pass, neither of which the
@@ -84,21 +93,6 @@
 // multiplies no matrices; TMA or cp.async staging would hide the load of
 // 2-3 bytes per lane, which the bound counts as a few percent of the bytes
 // moved, so neither is used.
-//
-// The direct-scan design (rows_kernel) runs seq, whose N flag the 2-bit
-// packing cannot carry, and, under the _ref entry points that only the card
-// checks call, the four tiled functions again, so that the checks can time
-// and compare the two designs. Codes, the node prefix and the k-mer keys
-// of the whole block plus its halo live in shared memory: ~108 KB with
-// 8-byte keys (two blocks of 256 threads per SM; ~75 KB for rows/seq,
-// which hold no node prefix), ~175 KB with 16-byte keys (one block of 512
-// threads per SM). Each key is built in k steps; each thread owns LPT
-// consecutive lanes and runs the direct O(w) window scan for each (32
-// threads of a warp read keys LPT lanes apart: a 16-way or 8-way bank
-// conflict on every load), and emitted lanes scan again when they write.
-// The compaction is a block-wide exclusive scan of per-thread emit counts;
-// the full-lane variants keep per-thread emit masks in shared memory and
-// write in a second, coalesced pass.
 
 #include <cstdint>
 #include <cstring>
@@ -110,70 +104,17 @@ using u64 = unsigned long long;
 
 constexpr int BLK = 8192;              // lanes per block (BLK in kernels.py)
 constexpr int HALO = 128;              // halo lanes (HALO_PAD); k + w - 2 <= HALO
-constexpr int NS = BLK + HALO;         // lanes of node prefix held per block
-constexpr int NK = BLK + HALO + 2;     // k-mer keys held (lanes -1 .. BLK+w-2)
-constexpr int NC = BLK + HALO + 1;     // codes held (lanes -1 .. BLK+HALO-1)
 constexpr long long DEAD_SE = 0xFFFFFFFFll;
-constexpr u64 DEAD_KEY = ~0ull;        // a dead k-mer (seq): never selected
-
-// A 126-bit canonical key: the 2k-bit big-endian packing of the k-mer, hi
-// holding bits 64..125 (the native __int128 layout of phi_native.cpp).
-struct Key128 {
-  u64 hi, lo;
-};
+// a dead k-mer (seq): above every live key (k <= 31: below 2^62), so a
+// window selects it only when all its k-mers are dead
+constexpr u64 DEAD_KEY = ~0ull;
 
 __device__ __forceinline__ bool key_le(u64 a, u64 b) { return a <= b; }
-__device__ __forceinline__ bool key_le(const Key128& a, const Key128& b) {
-  return a.hi < b.hi || (a.hi == b.hi && a.lo <= b.lo);
-}
 __device__ __forceinline__ bool key_ne(u64 a, u64 b) { return a != b; }
-__device__ __forceinline__ bool key_ne(const Key128& a, const Key128& b) {
-  return a.hi != b.hi || a.lo != b.lo;
-}
-
-// min(forward, reverse complement) of the k bases at code[0..k-1]; with
-// NCODE, DEAD_KEY when one of them is N (code >= 4, masked to 2 bits before
-// the complement so 3 - c cannot underflow)
-template <bool NCODE>
-__device__ __forceinline__ void canonical(const uint8_t* code, int k,
-                                          u64* out) {
-  u64 f = 0, rc = 0;
-  bool dead = false;
-  for (int j = 0; j < k; ++j) {
-    u64 c = code[j];
-    if constexpr (NCODE) {
-      dead |= c > 3;
-      c &= 3;
-    }
-    f = (f << 2) | c;
-    rc |= (3ull - c) << (2 * j);
-  }
-  *out = (NCODE && dead) ? DEAD_KEY : (f < rc ? f : rc);
-}
-template <bool NCODE>
-__device__ __forceinline__ void canonical(const uint8_t* code, int k,
-                                          Key128* out) {
-  static_assert(!NCODE, "the 126-bit key has no dead-k-mer variant");
-  Key128 f{0, 0}, rc{0, 0};
-  for (int j = 0; j < k; ++j) {
-    const u64 c = code[j];
-    f.hi = (f.hi << 2) | (f.lo >> 62);
-    f.lo = (f.lo << 2) | c;
-    const int sh = 2 * j;
-    if (sh < 64) rc.lo |= (3ull - c) << sh;
-    else rc.hi |= (3ull - c) << (sh - 64);
-  }
-  *out = key_le(f, rc) ? f : rc;
-}
 
 __device__ __forceinline__ void store_key(long long* hi, long long*, long long i,
                                           u64 key) {
   hi[i] = (long long)key;
-}
-__device__ __forceinline__ void store_key(long long* hi, long long* lo,
-                                          long long i, const Key128& key) {
-  hi[i] = (long long)key.hi;
-  lo[i] = (long long)key.lo;
 }
 __device__ __forceinline__ void store_dead(long long* hi, long long* lo,
                                            long long i, bool wide) {
@@ -211,32 +152,6 @@ __device__ int block_exclusive_scan(int v, int* warp_tot, int* total) {
   return excl;
 }
 
-// Window of w k-mers starting at lane p (p >= -1): minimum key, ties to the
-// rightmost lane. kmer[i] holds the k-mer at lane i - 1.
-template <typename K>
-__device__ __forceinline__ void window_min(const K* kmer, int p, int w,
-                                           K* key, int* q) {
-  K best = kmer[p + 1];
-  int bq = p;
-  for (int j = 1; j < w; ++j) {
-    const K v = kmer[p + 1 + j];
-    if (key_le(v, best)) {
-      best = v;
-      bq = p + j;
-    }
-  }
-  *key = best;
-  *q = bq;
-}
-
-// Whether a selected key is a live k-mer: only NCODE keys can be dead (a
-// live k <= 31 key is below 2^62, so it never equals DEAD_KEY).
-template <bool NCODE, typename K>
-__device__ __forceinline__ bool live(const K& key) {
-  if constexpr (NCODE) return key != DEAD_KEY;
-  else return true;
-}
-
 struct RowsIn {
   const uint8_t* codes;
   const uint8_t* nd;
@@ -258,161 +173,6 @@ struct RowsOut {
   uint8_t* emit;      // full-lane only
   int32_t* pos;       // position variants (rows, seq)
 };
-
-// K: key type; COMPACT: C-slot output (else full lanes); POS: the selected
-// k-mer's row-local start rides along (else its walk-position interval,
-// from the node plane); NCODE: codes may hold N.
-template <typename K, bool COMPACT, bool POS, bool NCODE, int THREADS>
-__global__ void __launch_bounds__(THREADS)
-rows_kernel(const RowsIn in, const RowsOut out) {
-  constexpr int LPT = BLK / THREADS;   // lanes per thread in the emit pass
-  constexpr bool WIDE = sizeof(K) > sizeof(u64);
-  static_assert(LPT <= 32, "one 32-bit emit mask per thread");
-  static_assert(!(COMPACT && POS), "compaction carries the interval");
-  const int b = blockIdx.x;
-  const int r = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int k = in.k, w = in.w, C = in.C, SB = in.SB;
-  const long long nv = in.nvalid[r];
-  const long long base_lane = (long long)b * BLK;
-  const long long blk = (long long)r * SB + b;
-  const long long out_off = blk * (COMPACT ? C : BLK);
-  const int n_out = COMPACT ? C : BLK;
-
-  if (base_lane >= nv) {  // block wholly past the row's windows
-    for (int i = tid; i < n_out; i += THREADS) {
-      store_dead(out.key_hi, out.key_lo, out_off + i, WIDE);
-      if constexpr (POS) out.pos[out_off + i] = -1;
-      else out.se[out_off + i] = DEAD_SE;
-      if constexpr (!COMPACT) out.emit[out_off + i] = 0;
-    }
-    if constexpr (COMPACT) {
-      if (tid == 0) out.cnt[blk] = 0;
-    }
-    return;
-  }
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  K* kmer = reinterpret_cast<K*>(smem);
-  int* scan = reinterpret_cast<int*>(kmer + NK);      // node prefix (!POS)
-  uint8_t* code = reinterpret_cast<uint8_t*>(scan + (POS ? 0 : NS));
-  __shared__ int warp_tot[THREADS / 32];
-  __shared__ unsigned masks[COMPACT ? 1 : THREADS];
-
-  const uint8_t* crow = in.codes + (long long)r * in.row_lanes + base_lane;
-  const int lb = in.left ? in.left[r] : -1;
-
-  // codes at lanes -1 .. BLK+HALO-1 (index = lane + 1) and the node plane
-  for (int i = tid; i < NC; i += THREADS) {
-    const int lane = i - 1;
-    uint8_t c;
-    if (lane >= 0) c = crow[lane];
-    else if (b > 0) c = crow[-1];
-    else c = lb >= 0 ? (uint8_t)lb : (uint8_t)0;
-    code[i] = c;
-  }
-  if constexpr (!POS) {
-    const uint8_t* nrow = in.nd + (long long)r * in.row_lanes + base_lane;
-    for (int i = tid; i < NS; i += THREADS) scan[i] = nrow[i];
-  }
-  __syncthreads();
-
-  // inclusive node-start prefix over the block's lanes (and halo)
-  if constexpr (!POS) {
-    constexpr int SPT = (NS + THREADS - 1) / THREADS;
-    const int lo = tid * SPT;
-    const int hi = min(lo + SPT, NS);
-    int sum = 0;
-    for (int i = lo; i < hi; ++i) sum += scan[i];
-    int total;
-    int run = block_exclusive_scan<THREADS>(sum, warp_tot, &total);
-    for (int i = lo; i < hi; ++i) {
-      run += scan[i];
-      scan[i] = run;
-    }
-  }
-
-  // canonical k-mer keys at lanes -1 .. BLK+w-2, in the reference's order
-  for (int i = tid; i < BLK + w; i += THREADS)
-    canonical<NCODE>(code + i, k, &kmer[i]);
-  __syncthreads();
-
-  // emit flags for this thread's LPT consecutive lanes
-  const int p0 = tid * LPT;
-  K pkey;
-  int pq;
-  window_min(kmer, p0 - 1, w, &pkey, &pq);
-  bool pvalid = ((p0 > 0) ? (base_lane + p0 - 1 < nv) : (b > 0 || lb >= 0))
-                && live<NCODE>(pkey);
-  unsigned mask = 0;
-  for (int t = 0; t < LPT; ++t) {
-    const int p = p0 + t;
-    K key;
-    int q;
-    window_min(kmer, p, w, &key, &q);
-    const bool valid = base_lane + p < nv && live<NCODE>(key);
-    if (valid && (key_ne(key, pkey) || !pvalid)) mask |= 1u << t;
-    pkey = key;
-    pvalid = valid;
-  }
-
-  const long long nbase = POS ? 0 : in.node_off[blk];
-  auto packed_se = [&](int q) -> long long {
-    const long long s = nbase + scan[q];
-    const long long e = nbase + scan[q + k - 1];
-    const unsigned span = (unsigned)min(e - s, 63ll);
-    return (long long)(((unsigned)s << 6) | span);
-  };
-
-  if constexpr (!COMPACT) {
-    // full lanes, coalesced: lane p's flag is bit p % LPT of masks[p / LPT]
-    masks[tid] = mask;
-    __syncthreads();
-    for (int p = tid; p < BLK; p += THREADS) {
-      const long long o = out_off + p;
-      K key;
-      int q = 0;
-      bool ok = base_lane + p < nv;
-      if (ok) {
-        window_min(kmer, p, w, &key, &q);
-        ok = live<NCODE>(key);
-      }
-      if (ok) {
-        store_key(out.key_hi, out.key_lo, o, key);
-        if constexpr (POS) out.pos[o] = (int32_t)(base_lane + q);
-        else out.se[o] = packed_se(q);
-      } else {
-        store_dead(out.key_hi, out.key_lo, o, WIDE);
-        if constexpr (POS) out.pos[o] = -1;
-        else out.se[o] = DEAD_SE;
-      }
-      out.emit[o] = (uint8_t)((masks[p / LPT] >> (p % LPT)) & 1u);
-    }
-  } else {
-    int total;
-    int slot = block_exclusive_scan<THREADS>(__popc(mask), warp_tot, &total);
-    while (mask) {
-      const int t = __ffs(mask) - 1;
-      mask &= mask - 1;
-      if (slot < C) {
-        K key;
-        int q;
-        window_min(kmer, p0 + t, w, &key, &q);
-        store_key(out.key_hi, out.key_lo, out_off + slot, key);
-        out.se[out_off + slot] = packed_se(q);
-      }
-      ++slot;
-    }
-    // slots past the count (disjoint from the slots written above)
-    for (int i = total + tid; i < C; i += THREADS) {
-      store_dead(out.key_hi, out.key_lo, out_off + i, WIDE);
-      out.se[out_off + i] = DEAD_SE;
-    }
-    if (tid == 0) out.cnt[blk] = total;
-  }
-}
-
-// ------------------------------------------------------- the tiled design
 
 // A 126-bit key laid out for one 16-byte shared-memory access per lane.
 struct __align__(16) Key128v {
@@ -451,6 +211,14 @@ __device__ __forceinline__ u64 shr_in(u64 a, u64 b, int sh) {
   return (a >> sh) | ((b << 1) << (63 - sh));
 }
 
+// Whether one of the k <= 31 bases from stream position s is N: dw holds the
+// dead bit of base s at bit s % 32 of word s / 32.
+__device__ __forceinline__ bool dead_kmer(const uint32_t* dw, int s, int k) {
+  const int m = s >> 5;
+  const u64 x = dw[m] | ((u64)dw[m + 1] << 32);
+  return (x >> (s & 31)) & ((1ull << k) - 1);
+}
+
 // Canonical key of the k bases from stream position s: fw holds base s at
 // bits 62 - 2(s % 32) of word s / 32, rv its complement at bits 2(s % 32).
 __device__ __forceinline__ void packed_key(const u64* fw, const u64* rv,
@@ -479,8 +247,9 @@ __device__ __forceinline__ void packed_key(const u64* fw, const u64* rv,
 // output, next_tile; finish). K: u64 (k <= 31) or Key128v (31 < k <= 63);
 // COMPACT: C-slot output (else full lanes); POS: the selected k-mer's
 // row-local start rides along (else its walk-position interval, from the
-// node plane, which POS never reads). No N codes.
-template <typename K, bool COMPACT, bool POS>
+// node plane, which POS never reads); NCODE (seq): codes may hold N, packed
+// as a third stream of one dead bit per base.
+template <typename K, bool COMPACT, bool POS, bool NCODE>
 struct TiledBlock {
   static constexpr int THREADS = TTHREADS;
   static constexpr int WARPS = THREADS / 32;
@@ -489,6 +258,7 @@ struct TiledBlock {
   static_assert(RPT * WARPS <= 32, "one warp scans a tile's warp counts");
   static_assert(TILE % THREADS == 0 && BLK % TILE == 0, "whole tiles");
   static_assert(!(COMPACT && POS), "compaction carries the interval");
+  static_assert(!NCODE || (POS && !WIDE), "N codes: seq only");
 
   // the kernel's __grid_constant__ parameter: its pointers are read from
   // the parameter bank where they are used (a copy here holds them in
@@ -507,6 +277,7 @@ struct TiledBlock {
   u64* const rv;
   uint16_t* const pa;          // the keys' entries, two buffers
   uint16_t* const pb;
+  uint32_t* const dw;          // NCODE: the dead bits, as fw lays out bases
   int* const warp_tot;
   int* const wofs;
   long long nbase = 0;         // node count before the block (pack)
@@ -534,6 +305,7 @@ struct TiledBlock {
         sc(reinterpret_cast<int*>(kb + TK)),
         fw(reinterpret_cast<u64*>(sc + (POS ? 0 : TS))), rv(fw + NW),
         pa(reinterpret_cast<uint16_t*>(rv + NW)), pb(pa + TK),
+        dw(NCODE ? reinterpret_cast<uint32_t*>(pb + TK) : nullptr),
         warp_tot(wt), wofs(wo) {}
 
   __device__ __forceinline__ void dead_passenger(long long o) const {
@@ -560,6 +332,8 @@ struct TiledBlock {
   // Pack the codes, one word per thread from two 16-byte loads: word m > 0
   // holds lanes 32(m-1) .. 32m-1 (lane L is stream position L + 32), word
   // 0 only lane -1; lanes past the halo feed bits that are shifted out.
+  // Under NCODE a code >= 4 (N) packs as its low two bits, as the 2-bit
+  // streams must, and sets its base's dead bit.
   // The block's node count is read after it, so that it takes no register
   // while the packing runs.
   __device__ __forceinline__ void pack() {
@@ -577,9 +351,18 @@ struct TiledBlock {
           f |= c << (62 - 2 * i);
           rc |= (3u - c) << (2 * i);
         }
+        if constexpr (NCODE) {
+          unsigned d = 0;
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            d |= (unsigned)(((x[i >> 2] >> (8 * (i & 3))) & 0xFCu) != 0) << i;
+          dw[m] = d;
+        }
       } else {
-        const u64 c =
+        const u64 c0 =
             blockIdx.x > 0 ? crow[-1] : (lb >= 0 ? (unsigned)lb : 0u);
+        if constexpr (NCODE) dw[0] = (unsigned)(c0 > 3) << 31;  // lane -1
+        const u64 c = NCODE ? c0 & 3u : c0;
         f = c;
         rc = (3u - c) << 62;
       }
@@ -601,11 +384,19 @@ struct TiledBlock {
   }
 
   // Entry i = lane - P0 + 1: the keys of lanes P0-1 .. P0+TILE+w-2 with
-  // their entry, and (not under POS) the inclusive node-start prefix of
-  // lanes P0 .. P0+TS-1 counted from lane 0 of the block.
+  // their entry (under NCODE, DEAD_KEY for a k-mer holding N, so it is
+  // never selected), and (not under POS) the inclusive node-start prefix
+  // of lanes P0 .. P0+TS-1 counted from lane 0 of the block.
   __device__ __forceinline__ void keys_and_prefix(int P0) const {
     for (int i = tid; i < TILE + w; i += THREADS) {
-      packed_key(fw, rv, P0 + i + 31, k, &ka[i]);
+      if constexpr (NCODE) {
+        const int s = P0 + i + 31;
+        u64 key;
+        packed_key(fw, rv, s, k, &key);
+        ka[i] = dead_kmer(dw, s, k) ? DEAD_KEY : key;
+      } else {
+        packed_key(fw, rv, P0 + i + 31, k, &ka[i]);
+      }
       pa[i] = (uint16_t)i;
     }
     if constexpr (POS) {
@@ -691,11 +482,19 @@ struct TiledBlock {
   }
 
   // Lane p = P0 + j (window j + 1) emits when it is valid and its
-  // selection differs from lane p - 1's or lane p - 1 is not valid.
+  // selection differs from lane p - 1's or lane p - 1 is not valid. Under
+  // NCODE a window whose k-mers all hold N (its minimum is DEAD_KEY) is not
+  // valid; a live selection differs from a dead one, so lane p - 1's
+  // liveness needs no test of its own.
   __device__ __forceinline__ bool emits(int P0, int p) const {
     const int j = p - P0;
     const bool pvalid = p > 0 ? p - 1 < nvb : (blockIdx.x > 0 || lb >= 0);
-    return p < nvb && (key_ne(src[j + 1], src[j]) || !pvalid);
+    if constexpr (NCODE) {
+      return p < nvb && src[j + 1] != DEAD_KEY &&
+             (src[j + 1] != src[j] || !pvalid);
+    } else {
+      return p < nvb && (key_ne(src[j + 1], src[j]) || !pvalid);
+    }
   }
 
   // Full lanes (rows2, rows), coalesced; or (rows3, rows3w) the emitted
@@ -706,7 +505,9 @@ struct TiledBlock {
       for (int j = tid; j < TILE; j += THREADS) {
         const int p = P0 + j;
         const long long o = out_off + p;
-        if (p < nvb) {
+        bool ok = p < nvb;
+        if constexpr (NCODE) ok = ok && src[j + 1] != DEAD_KEY;
+        if (ok) {
           store_key(out.key_hi, out.key_lo, o, src[j + 1]);
           passenger(o, P0, j + 1);
         } else {
@@ -766,20 +567,21 @@ struct TiledBlock {
   }
 };
 
-template <typename K, bool POS>
+template <typename K, bool POS, bool NCODE>
 constexpr size_t tiled_smem() {
   return 2 * sizeof(K) * TK + (POS ? 0 : sizeof(int) * TS) +
-         2 * sizeof(u64) * NW + 2 * sizeof(uint16_t) * TK;
+         2 * sizeof(u64) * NW + 2 * sizeof(uint16_t) * TK +
+         (NCODE ? sizeof(uint32_t) * NW : 0);
 }
 
-template <typename K, bool COMPACT, bool POS>
+template <typename K, bool COMPACT, bool POS, bool NCODE>
 __global__ void __launch_bounds__(TTHREADS, tiled_minb(POS))
 tiled_kernel(const __grid_constant__ RowsIn in,
              const __grid_constant__ RowsOut out) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int warp_tot[TTHREADS / 32];
   __shared__ int wofs[COMPACT ? 32 : 1];
-  TiledBlock<K, COMPACT, POS> t(in, out, smem, warp_tot, wofs);
+  TiledBlock<K, COMPACT, POS, NCODE> t(in, out, smem, warp_tot, wofs);
   if (t.past_block()) return;
   t.pack();
   for (int P0 = 0; P0 < BLK && !t.past_tile(P0); P0 += TILE) {
@@ -791,32 +593,19 @@ tiled_kernel(const __grid_constant__ RowsIn in,
   t.finish();
 }
 
-template <typename K, bool POS>
-constexpr size_t rows_smem() {
-  return sizeof(K) * NK + (POS ? 0 : sizeof(int) * NS) + NC;
-}
-
-// A kernel instantiation with its block size and dynamic shared memory.
+// A kernel instantiation with its dynamic shared memory (TTHREADS threads
+// per block).
 struct Variant {
   void (*kern)(RowsIn, RowsOut);
-  int threads;
   size_t smem;
 };
 
-template <typename K, bool COMPACT, bool POS>
+template <typename K, bool COMPACT, bool POS, bool NCODE = false>
 Variant tiled() {
-  return {tiled_kernel<K, COMPACT, POS>, TTHREADS, tiled_smem<K, POS>()};
+  return {tiled_kernel<K, COMPACT, POS, NCODE>, tiled_smem<K, POS, NCODE>()};
 }
 
-template <typename K, bool COMPACT, bool POS, bool NCODE, int THREADS>
-Variant direct() {
-  return {rows_kernel<K, COMPACT, POS, NCODE, THREADS>, THREADS,
-          rows_smem<K, POS>()};
-}
-
-// The nine kernels by their entry point's name: four tiled, seq, and the
-// direct scans of the four tiled functions (the _ref entry points, which
-// only the card checks call; the main path never does).
+// The five kernels by their entry point's name.
 Variant variant(const char* name) {
   static const struct {
     const char* name;
@@ -826,15 +615,11 @@ Variant variant(const char* name) {
       {"rows3w", tiled<Key128v, true, false>()},
       {"rows2", tiled<u64, false, false>()},
       {"rows", tiled<u64, false, true>()},
-      {"seq", direct<u64, false, true, true, 256>()},
-      {"rows3_ref", direct<u64, true, false, false, 256>()},
-      {"rows3w_ref", direct<Key128, true, false, false, 512>()},
-      {"rows2_ref", direct<u64, false, false, false, 256>()},
-      {"rows_ref", direct<u64, false, true, false, 256>()},
+      {"seq", tiled<u64, false, true, true>()},
   };
   for (const auto& e : table)
     if (!strcmp(name, e.name)) return e.v;
-  return {nullptr, 0, 0};
+  return {nullptr, 0};
 }
 
 int set_smem(const Variant& v) {
@@ -847,7 +632,7 @@ int launch(const char* name, const RowsIn& in, const RowsOut& out, int R,
   const Variant v = variant(name);
   if (int err = set_smem(v)) return err;
   dim3 grid(in.SB, R);
-  v.kern<<<grid, v.threads, v.smem, (cudaStream_t)stream>>>(in, out);
+  v.kern<<<grid, TTHREADS, v.smem, (cudaStream_t)stream>>>(in, out);
   return (int)cudaGetLastError();
 }
 
@@ -881,7 +666,6 @@ RowsIn rows_in(const void* codes, const void* nd, const void* nvalid,
                   out, R, stream);                                           \
   }
 PHI_ROWS3_ENTRY(rows3)
-PHI_ROWS3_ENTRY(rows3_ref)
 
 #define PHI_ROWS3W_ENTRY(N)                                                   \
   extern "C" int phi_##N##_launch(                                           \
@@ -898,7 +682,6 @@ PHI_ROWS3_ENTRY(rows3_ref)
                   out, R, stream);                                           \
   }
 PHI_ROWS3W_ENTRY(rows3w)
-PHI_ROWS3W_ENTRY(rows3w_ref)
 
 #define PHI_ROWS2_ENTRY(N)                                                    \
   extern "C" int phi_##N##_launch(                                           \
@@ -914,7 +697,6 @@ PHI_ROWS3W_ENTRY(rows3w_ref)
                   out, R, stream);                                           \
   }
 PHI_ROWS2_ENTRY(rows2)
-PHI_ROWS2_ENTRY(rows2_ref)
 
 // rows (2-bit codes) and seq (codes that may hold N): no node plane, the
 // selected k-mer's row-local start rides along; left may be null for seq.
@@ -931,7 +713,6 @@ PHI_ROWS2_ENTRY(rows2_ref)
                   out, R, stream);                                           \
   }
 PHI_POS_ENTRY(rows)
-PHI_POS_ENTRY(rows_ref)
 PHI_POS_ENTRY(seq)
 
 // Resident blocks per SM of the kernel behind phi_<name>_launch into
@@ -941,5 +722,5 @@ extern "C" int phi_rows_occupancy(const char* name, int* blocks) {
   if (!v.kern) return -1;
   if (int err = set_smem(v)) return err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, v.kern, v.threads, v.smem);
+      blocks, v.kern, TTHREADS, v.smem);
 }

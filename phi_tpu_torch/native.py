@@ -112,6 +112,17 @@ def _get_lib_locked() -> ctypes.CDLL | None:
                                  ctypes.c_int,
                                  ctypes.POINTER(ctypes.c_uint64), c_i64]
 
+    u64p = ctypes.POINTER(ctypes.c_uint64)
+    lib.phi_hap_join.restype = c_i64
+    lib.phi_hap_join.argtypes = [c_u8p, c_i64, ctypes.c_int, ctypes.c_int,
+                                 u64p, c_i64, c_i64p, ctypes.c_int,
+                                 c_i32p, c_i32p, c_i64, c_i64p]
+    lib.phi_hap_join_walk.restype = c_i64
+    lib.phi_hap_join_walk.argtypes = [c_u8p, c_i64p, c_i32p, c_i64,
+                                      ctypes.c_int, ctypes.c_int, u64p,
+                                      c_i64, c_i64p, ctypes.c_int,
+                                      c_i32p, c_i32p, c_i64, c_i64p]
+
     lib.phi_anchors.restype = c_p
     lib.phi_anchors.argtypes = [c_i64, c_i64, c_i32p, c_i32p, c_i64p,
                                 c_i64p, ctypes.POINTER(c_i32p),
@@ -154,9 +165,24 @@ def available() -> bool:
     return get_lib() is not None
 
 
+# the thread count asked for (0 = auto): the native pools get it through
+# phi_set_threads, the Python pools (the host join across haplotypes) read
+# it here
+THREADS = 0
+
+
 def set_threads(n: int) -> None:
-    """Set the native pools' size (the CLI's -t; 0 = auto)."""
-    _need_lib().phi_set_threads(max(0, int(n)))
+    """Set every native and host pool's size (the CLI's -t; 0 = auto)."""
+    global THREADS
+    THREADS = max(0, int(n))
+    _need_lib().phi_set_threads(THREADS)
+
+
+def pool_threads(default_cap: int = 8) -> int:
+    """Host pool size for the Python thread fan-outs."""
+    if THREADS > 0:
+        return THREADS
+    return min(default_cap, os.cpu_count() or 1)
 
 
 _HUGE = 2 << 20  # x86-64 huge page
@@ -307,6 +333,81 @@ def spectrum_native(concat: np.ndarray, off: np.ndarray, k: int, w: int
         if cnt <= cap:
             return out[:cnt].copy()
         cap = int(cnt)
+
+
+def join_accel(sp_key: np.ndarray) -> tuple[np.ndarray, int]:
+    """(bucket_off, prefix_bits) first-probe table over sorted uint64 keys:
+    bucket_off[b] is the first index whose top prefix_bits equal b. Built
+    once per spectrum and shared by the haplotypes' joins."""
+    n = len(sp_key)
+    # ~1 key per bucket: the table is about the size of the keys
+    prefix_bits = max(1, min(26, int(np.log2(max(n, 2)))))
+    edges = (np.arange((1 << prefix_bits) + 1, dtype=np.uint64)
+             << np.uint64(64 - prefix_bits))
+    edges[-1] = np.uint64(0xFFFFFFFFFFFFFFFF)
+    off = np.searchsorted(sp_key, edges, side="left").astype(np.int64)
+    off[-1] = n  # the top edge takes the all-ones key
+    return off, prefix_bits
+
+
+def _hap_join(call, n_bases: int, w: int, sp_key: np.ndarray, accel):
+    """Run one native join call(keys, n_keys, bucket_off, prefix_bits, pos,
+    sid, cap, n_min), retrying with the returned hit count as the cap.
+    Returns (n_minimizers, hit positions int32, hit spectrum ids int32)."""
+    kk = np.ascontiguousarray(sp_key, np.uint64)
+    cap = max(1024, 4 * n_bases // (w + 1) + 64)
+    n_min = c_i64(0)
+    if accel is not None:
+        off_arr = np.ascontiguousarray(accel[0], np.int64)
+        off_ptr, prefix_bits = off_arr.ctypes.data_as(c_i64p), accel[1]
+    else:
+        off_ptr, prefix_bits = None, 0
+    while True:
+        pos = np.empty(cap, np.int32)
+        sid = np.empty(cap, np.int32)
+        cnt = call(kk.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+                   len(kk), off_ptr, prefix_bits, pos.ctypes.data_as(c_i32p),
+                   sid.ctypes.data_as(c_i32p), cap, ctypes.byref(n_min))
+        if cnt < 0:
+            raise RuntimeError("the native host join failed")
+        if cnt <= cap:
+            return int(n_min.value), pos[:cnt].copy(), sid[:cnt].copy()
+        cap = int(cnt)
+
+
+def hap_join_native(codes: np.ndarray, k: int, w: int, sp_key: np.ndarray,
+                    accel: tuple[np.ndarray, int] | None = None
+                    ) -> tuple[int, np.ndarray, np.ndarray]:
+    """(n_minimizers, hit positions int32, hit spectrum ids int32) of one
+    sequence (codes >= 4 are N) joined against sorted uint64 spectrum keys;
+    for k > 31 the keys are the 64-bit folds of the 126-bit k-mers. The
+    scan releases the GIL, so callers thread across haplotypes; a shared
+    join_accel(sp_key) replaces each emission's full binary search by a
+    first-probe lookup."""
+    lib = _need_lib()
+    cc = np.ascontiguousarray(codes, np.uint8)
+    return _hap_join(
+        lambda *rest: lib.phi_hap_join(cc.ctypes.data_as(c_u8p), len(cc), k,
+                                       w, *rest),
+        len(cc), w, sp_key, accel)
+
+
+def hap_join_walk_native(seq_code: np.ndarray, node_off: np.ndarray,
+                         walk: np.ndarray, walk_bases: int, k: int, w: int,
+                         sp_key: np.ndarray,
+                         accel: tuple[np.ndarray, int] | None = None
+                         ) -> tuple[int, np.ndarray, np.ndarray]:
+    """hap_join_native on a walk read node by node from the graph tensors
+    (no concatenated copy); walk_bases sizes the first hit capacity."""
+    lib = _need_lib()
+    sc = np.ascontiguousarray(seq_code, np.uint8)
+    no = np.ascontiguousarray(node_off, np.int64)
+    wk = np.ascontiguousarray(walk, np.int32)
+    return _hap_join(
+        lambda *rest: lib.phi_hap_join_walk(
+            sc.ctypes.data_as(c_u8p), no.ctypes.data_as(c_i64p),
+            wk.ctypes.data_as(c_i32p), len(wk), k, w, *rest),
+        walk_bases, w, sp_key, accel)
 
 
 def anchors_native(graph, k: int,

@@ -7,12 +7,18 @@ one of two anchor routes:
   * the device anchors (the default): the haplotype sketch, join and
     threshold filter on the device (anchors/device.py, through the rows3,
     rows3w or rows2 kernel);
-  * the hit path (`--save-index`, or an empty read spectrum): the v1 join
-    on the device (`sketch.kernels.join_many`, the rows kernel) returns
-    per-haplotype hits, and the anchor tables are built on the host
-    (anchors/join.py); `--save-index` writes the spectrum and hits, and
-    `--load-index` reads them back instead of the reads, so a re-solve
-    with other solver parameters skips all sketching (checkpoint.py).
+  * the hit path (`--save-index`, an empty read spectrum, or where the
+    device anchors return None, as the reference's do: walks holding N,
+    more than 255 haplotypes, k + w - 2 beyond the kernels' halo, wide k
+    off the cuckoo table, overflows): per-haplotype hits from the v1 join
+    on the device (`sketch.kernels.join_many`, the rows kernel, with the
+    native host join for walks holding N) or, for k > 31 or k + w - 2
+    beyond the halo, from the native host join of every walk
+    (`sketch.minimizer.sketch_join_walks`); the anchor tables are built
+    on the host (anchors/join.py). `--save-index` writes the spectrum and
+    hits, and `--load-index` reads them back instead of the reads, so a
+    re-solve with other solver parameters skips all sketching
+    (checkpoint.py).
 Then the exact-credit DP on the device (solve/dp.py); decode, the
 Lagrangian / subgradient / exact / branch-and-bound certification ladder
 and emit on the host.
@@ -37,13 +43,13 @@ from phi_tpu_torch.graph.pangenome import PangenomeGraph, tensorize
 from phi_tpu_torch.io.fasta import hap_name_from_paths, write_fasta
 from phi_tpu_torch.io.gfa import read_gfa
 from phi_tpu_torch.io.reads import load_read_batch
-from phi_tpu_torch.sketch.kernels import NARROW_MAX_K, join_many
+from phi_tpu_torch.sketch.kernels import HALO_PAD, NARROW_MAX_K, join_many
+from phi_tpu_torch.sketch.minimizer import host_join_many, sketch_join_walks
 from phi_tpu_torch.solve.decode import DecodeResult, decode_path
 from phi_tpu_torch.solve.dp import LAST_TIMINGS, solve_dp
 from phi_tpu_torch.solve.prep import build_solver_tables
 
 _NOT_PORTED = "not yet ported to phi_tpu_torch"
-_HOST_JOIN = "the host join is " + _NOT_PORTED + " (ROADMAP.md queue 1, item 6)"
 
 
 @dataclasses.dataclass
@@ -55,6 +61,9 @@ class PipelineResult:
     report_segments: list[str]
     graph: PangenomeGraph
     timings: dict[str, float]
+    # the hit path's per-hap (n_minimizers, positions, spectrum ids); None
+    # when the device anchors ran
+    hits: list | None = None
 
 
 def resolve_device(device) -> torch.device:
@@ -151,14 +160,18 @@ def run_pipeline(gfa_path: str, reads_path: str | None, out_path: str | None,
         t1 = time.time()
         plog.raw("Number of Minimizers")
         hap_codes = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
-        if opt.save_index or len(spectrum[0]) == 0:
-            hits = _join_hits(hap_codes, opt, spectrum, device)
-            per_hap_min = [n for n, _, _ in hits]
-        else:
-            # haplotype sketch + join + threshold filter, on the device
-            per_hap_min, dev_occ = join_anchors_device(
+        dres = None
+        if not opt.save_index and len(spectrum[0]):
+            # haplotype sketch + join + threshold filter, on the device;
+            # None where the reference leaves it for the hit path
+            dres = join_anchors_device(
                 graph, hap_codes, opt.k, opt.w, spectrum[0], spectrum[1],
                 opt.threshold, device=device)
+        if dres is None:
+            hits = _join_hits(graph, hap_codes, opt, spectrum, device)
+            per_hap_min = [n for n, _, _ in hits]
+        else:
+            per_hap_min, dev_occ = dres
             anchors = AnchorTables(
                 occ_hap=None, occ_start=None, occ_end=None, occ_kmer=None,
                 occ_weight=None, n_model_kmers=dev_occ.n_model,
@@ -233,24 +246,23 @@ def run_pipeline(gfa_path: str, reads_path: str | None, out_path: str | None,
     return PipelineResult(
         sequence=seq, decode=result, anchors=anchors,
         recombination_count=recomb, report_segments=segs,
-        graph=graph, timings=timings)
+        graph=graph, timings=timings, hits=hits)
 
 
-def _join_hits(hap_codes, opt: Options, spectrum, device):
-    """The hit path's join: per-hap (n_minimizers, positions, spectrum ids)
-    from join_many on the device. Where the reference takes its host join
-    (k > 31, a walk holding N), this raises and names the condition."""
-    if opt.k > NARROW_MAX_K:
-        raise NotImplementedError(
-            f"the hit path (--save-index or an empty read spectrum) with "
-            f"k={opt.k} > {NARROW_MAX_K}: {_HOST_JOIN}")
-    hits = join_many(hap_codes, opt.k, opt.w, spectrum[0], spectrum[1],
-                     device=device)
-    n_walks = [h for h, out in enumerate(hits) if out is None]
-    if n_walks:
-        raise NotImplementedError(
-            f"the hit path (--save-index or an empty read spectrum) with "
-            f"walk {n_walks[0]} holding non-ACGT bases: {_HOST_JOIN}")
+def _join_hits(graph, hap_codes, opt: Options, spectrum, device):
+    """The hit path's join: per-hap (n_minimizers, positions, spectrum ids).
+    For k <= 31 within the kernels' halo, join_many on the device, and the
+    native host join for each walk it hands back (walks holding N); for
+    k > 31 or k + w - 2 beyond the halo, the native host join of every
+    walk (the reference's choice, pipeline.py:217-232 of the JAX
+    package)."""
+    if opt.k > NARROW_MAX_K or opt.k + opt.w - 2 > HALO_PAD:
+        return sketch_join_walks(graph, opt.k, opt.w, *spectrum)
+    hits = join_many(hap_codes, opt.k, opt.w, *spectrum, device=device)
+    left = [h for h, out in enumerate(hits) if out is None]
+    for h, out in zip(left, host_join_many(hap_codes, left, opt.k, opt.w,
+                                           *spectrum)):
+        hits[h] = out
     return hits
 
 

@@ -24,13 +24,11 @@ top of `csrc/rows.cu`: the full-lane variants and rows3 are bound by the
 bytes they move, rows3w by its 126-bit key and compare operations. Every
 block is independent because the TPU kernels' grid carries (the dedup
 carry, the node-count carry, the roll network compaction) become a one-base
-left context, per-block node offsets and a block-wide scan. rows3, rows3w,
-rows2 and rows run the tiled design (an O(1) key per lane from codes
-packed 2 bits a base, so their codes must be 16-byte aligned; a
-log-doubling window minimum computed once per lane). Only seq, whose N
-flag the packing cannot carry, runs the direct-scan design; the
-`sketch_<name>_ref` entry points (CUDA tensors only) run the four tiled
-functions in it too, so that the card checks can time and compare the two.
+left context, per-block node offsets and a block-wide scan. All five run
+one tiled design (an O(1) key per lane from codes packed 2 bits a base,
+so their codes must be 16-byte aligned; a log-doubling window minimum
+computed once per lane); seq packs its N flags as a third stream of one
+dead bit per base.
 
 Around the kernels, the joins are torch ops: `join_rows3` and `join_rows3w`
 port `_pallas_join_rows3_ck` and `_pallas_join_rows3w_ck` (the 2-bit
@@ -549,10 +547,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     pos_inputs = [vp, vp, vp, cl, ci, ci, ci, ci]
     narrow = inputs + [ci, vp, vp, vp, vp]
     pos = pos_inputs + [vp, vp, vp, vp]
-    for name, args in (("rows3", narrow), ("rows3_ref", narrow),
-                       ("rows3w", wide), ("rows3w_ref", wide),
-                       ("rows2", full), ("rows2_ref", full),
-                       ("rows", pos), ("rows_ref", pos), ("seq", pos)):
+    for name, args in (("rows3", narrow), ("rows3w", wide), ("rows2", full),
+                       ("rows", pos), ("seq", pos)):
         fn = getattr(lib, f"phi_{name}_launch")
         fn.argtypes = args
         fn.restype = ci
@@ -613,54 +609,23 @@ def _check_aligned(entry: str, codes) -> None:
         raise ValueError(f"{entry} needs codes aligned to 16 bytes")
 
 
-def _rows3_on_card(entry: str, codes, nd, nvalid, left, node_off, k: int,
-                   w: int, C: int):
-    _check_rows("rows3", codes, nd, nvalid, left, node_off, k, w, C,
-                (1, NARROW_MAX_K))
-    _check_aligned(entry, codes)
-    R, SB = node_off.shape
-    key = torch.empty((R, SB * C), dtype=torch.int64, device=codes.device)
-    se = torch.empty_like(key)
-    cnt = torch.empty((R, SB), dtype=torch.int32, device=codes.device)
-    _launch(entry, (codes, nd, nvalid, left, node_off), SB, k, w, (C,),
-            (key, se, cnt))
-    return key, se, cnt
-
-
 def sketch_rows3(codes, nd, nvalid, left, node_off, k: int, w: int, C: int):
     """rows3 sketch: the CUDA kernel for CUDA tensors, the torch twin for
     CPU tensors (see sketch_rows3_torch for the contract). A CUDA launch
     that fails raises; `sketch_rows3.launches` counts kernel launches."""
     if not _on_card("rows3", codes):
         return sketch_rows3_torch(codes, nd, nvalid, left, node_off, k, w, C)
-    out = _rows3_on_card("rows3", codes, nd, nvalid, left, node_off, k, w, C)
-    sketch_rows3.launches += 1
-    return out
-
-
-def sketch_rows3_ref(codes, nd, nvalid, left, node_off, k: int, w: int,
-                     C: int):
-    """rows3 in the direct-scan design (CUDA tensors only), for the card
-    checks that time and compare it with the tiled design."""
-    if not _on_card("rows3_ref", codes):
-        raise ValueError("sketch_rows3_ref runs on cuda tensors only")
-    return _rows3_on_card("rows3_ref", codes, nd, nvalid, left, node_off, k,
-                          w, C)
-
-
-def _rows3w_on_card(entry: str, codes, nd, nvalid, left, node_off, k: int,
-                    w: int, C: int):
-    _check_rows("rows3w", codes, nd, nvalid, left, node_off, k, w, C,
-                (NARROW_MAX_K + 1, WIDE_MAX_K))
-    _check_aligned(entry, codes)
+    _check_rows("rows3", codes, nd, nvalid, left, node_off, k, w, C,
+                (1, NARROW_MAX_K))
+    _check_aligned("rows3", codes)
     R, SB = node_off.shape
-    hi = torch.empty((R, SB * C), dtype=torch.int64, device=codes.device)
-    lo = torch.empty_like(hi)
-    se = torch.empty_like(hi)
+    key = torch.empty((R, SB * C), dtype=torch.int64, device=codes.device)
+    se = torch.empty_like(key)
     cnt = torch.empty((R, SB), dtype=torch.int32, device=codes.device)
-    _launch(entry, (codes, nd, nvalid, left, node_off), SB, k, w, (C,),
-            (hi, lo, se, cnt))
-    return hi, lo, se, cnt
+    _launch("rows3", (codes, nd, nvalid, left, node_off), SB, k, w, (C,),
+            (key, se, cnt))
+    sketch_rows3.launches += 1
+    return key, se, cnt
 
 
 def sketch_rows3w(codes, nd, nvalid, left, node_off, k: int, w: int,
@@ -671,34 +636,18 @@ def sketch_rows3w(codes, nd, nvalid, left, node_off, k: int, w: int,
     if not _on_card("rows3w", codes):
         return sketch_rows3w_torch(codes, nd, nvalid, left, node_off, k, w,
                                    C)
-    out = _rows3w_on_card("rows3w", codes, nd, nvalid, left, node_off, k, w,
-                          C)
-    sketch_rows3w.launches += 1
-    return out
-
-
-def sketch_rows3w_ref(codes, nd, nvalid, left, node_off, k: int, w: int,
-                      C: int):
-    """rows3w in the direct-scan design (CUDA tensors only), for the card
-    checks that time and compare it with the tiled design."""
-    if not _on_card("rows3w_ref", codes):
-        raise ValueError("sketch_rows3w_ref runs on cuda tensors only")
-    return _rows3w_on_card("rows3w_ref", codes, nd, nvalid, left, node_off,
-                           k, w, C)
-
-
-def _rows2_on_card(entry: str, codes, nd, nvalid, left, node_off, k: int,
-                   w: int):
-    _check_rows("rows2", codes, nd, nvalid, left, node_off, k, w, None,
-                (1, NARROW_MAX_K))
-    _check_aligned(entry, codes)
+    _check_rows("rows3w", codes, nd, nvalid, left, node_off, k, w, C,
+                (NARROW_MAX_K + 1, WIDE_MAX_K))
+    _check_aligned("rows3w", codes)
     R, SB = node_off.shape
-    key = torch.empty((R, SB * BLK), dtype=torch.int64, device=codes.device)
-    se = torch.empty_like(key)
-    emit = torch.empty((R, SB * BLK), dtype=torch.bool, device=codes.device)
-    _launch(entry, (codes, nd, nvalid, left, node_off), SB, k, w, (),
-            (key, se, emit))
-    return key, se, emit
+    hi = torch.empty((R, SB * C), dtype=torch.int64, device=codes.device)
+    lo = torch.empty_like(hi)
+    se = torch.empty_like(hi)
+    cnt = torch.empty((R, SB), dtype=torch.int32, device=codes.device)
+    _launch("rows3w", (codes, nd, nvalid, left, node_off), SB, k, w, (C,),
+            (hi, lo, se, cnt))
+    sketch_rows3w.launches += 1
+    return hi, lo, se, cnt
 
 
 def sketch_rows2(codes, nd, nvalid, left, node_off, k: int, w: int):
@@ -707,21 +656,24 @@ def sketch_rows2(codes, nd, nvalid, left, node_off, k: int, w: int):
     `sketch_rows2.launches` counts kernel launches."""
     if not _on_card("rows2", codes):
         return sketch_rows2_torch(codes, nd, nvalid, left, node_off, k, w)
-    out = _rows2_on_card("rows2", codes, nd, nvalid, left, node_off, k, w)
+    _check_rows("rows2", codes, nd, nvalid, left, node_off, k, w, None,
+                (1, NARROW_MAX_K))
+    _check_aligned("rows2", codes)
+    R, SB = node_off.shape
+    key = torch.empty((R, SB * BLK), dtype=torch.int64, device=codes.device)
+    se = torch.empty_like(key)
+    emit = torch.empty((R, SB * BLK), dtype=torch.bool, device=codes.device)
+    _launch("rows2", (codes, nd, nvalid, left, node_off), SB, k, w, (),
+            (key, se, emit))
     sketch_rows2.launches += 1
-    return out
+    return key, se, emit
 
 
-def sketch_rows2_ref(codes, nd, nvalid, left, node_off, k: int, w: int):
-    """rows2 in the direct-scan design (CUDA tensors only), for the card
-    checks that time and compare it with the tiled design."""
-    if not _on_card("rows2_ref", codes):
-        raise ValueError("sketch_rows2_ref runs on cuda tensors only")
-    return _rows2_on_card("rows2_ref", codes, nd, nvalid, left, node_off, k,
-                          w)
-
-
-def _launch_pos(name: str, codes, nvalid, left, SB: int, k: int, w: int):
+def _launch_pos(name: str, codes, nvalid, left, k: int, w: int):
+    """Check, then launch a position variant (rows, seq) into fresh
+    full-lane outputs."""
+    SB = _check_pos(name, codes, nvalid, left, k, w)
+    _check_aligned(name, codes)
     R = codes.shape[0]
     key = torch.empty((R, SB * BLK), dtype=torch.int64, device=codes.device)
     pos = torch.empty((R, SB * BLK), dtype=torch.int32, device=codes.device)
@@ -730,29 +682,15 @@ def _launch_pos(name: str, codes, nvalid, left, SB: int, k: int, w: int):
     return key, pos, emit
 
 
-def _rows_on_card(entry: str, codes, nvalid, left, k: int, w: int):
-    SB = _check_pos("rows", codes, nvalid, left, k, w)
-    _check_aligned(entry, codes)
-    return _launch_pos(entry, codes, nvalid, left, SB, k, w)
-
-
 def sketch_rows(codes, nvalid, left, k: int, w: int):
     """rows (v1) sketch: the CUDA kernel for CUDA tensors, the torch twin
     for CPU tensors (see sketch_rows_torch); `sketch_rows.launches` counts
     kernel launches."""
     if not _on_card("rows", codes):
         return sketch_rows_torch(codes, nvalid, left, k, w)
-    out = _rows_on_card("rows", codes, nvalid, left, k, w)
+    out = _launch_pos("rows", codes, nvalid, left, k, w)
     sketch_rows.launches += 1
     return out
-
-
-def sketch_rows_ref(codes, nvalid, left, k: int, w: int):
-    """rows in the direct-scan design (CUDA tensors only), for the card
-    checks that time and compare it with the tiled design."""
-    if not _on_card("rows_ref", codes):
-        raise ValueError("sketch_rows_ref runs on cuda tensors only")
-    return _rows_on_card("rows_ref", codes, nvalid, left, k, w)
 
 
 def sketch_seq(codes, nvalid, k: int, w: int):
@@ -761,8 +699,7 @@ def sketch_seq(codes, nvalid, k: int, w: int):
     `sketch_seq.launches` counts kernel launches."""
     if not _on_card("seq", codes):
         return sketch_seq_torch(codes, nvalid, k, w)
-    SB = _check_pos("seq", codes, nvalid, None, k, w)
-    out = _launch_pos("seq", codes, nvalid, None, SB, k, w)
+    out = _launch_pos("seq", codes, nvalid, None, k, w)
     sketch_seq.launches += 1
     return out
 
@@ -975,8 +912,8 @@ def pack_join_batch(seqs, batch, row_lanes: int, device):
 
 
 def join_many(seqs: list[np.ndarray], k: int, w: int, sp_hi, sp_lo, *,
-              device, rows_per_call: int = ROWS,
-              super_blocks: int = SUPER_BLOCKS):
+              device, rows_per_call: int | None = None,
+              super_blocks: int | None = None):
     """Sketch + join of many sequences against the read spectrum (the port
     of pallas_join_many): per sequence, (n_minimizers, hit positions int32,
     hit spectrum ids int32), hits in position order. A sequence holding N
@@ -989,19 +926,21 @@ def join_many(seqs: list[np.ndarray], k: int, w: int, sp_hi, sp_lo, *,
     (pack_row_left), so rows and batches carry nothing. A batch whose
     emitted lanes overflow emitcap or whose hits overflow cap_total (the
     reference's join_caps) is rerun with the caps raised to the next power
-    of two; n_min is exact either way."""
+    of two; n_min is exact either way. The geometry defaults to ROWS rows
+    of SUPER_BLOCKS blocks, read when called."""
     if not 1 <= k <= NARROW_MAX_K:
         raise ValueError(f"join_many needs 1 <= k <= {NARROW_MAX_K}, "
                          f"got k={k}")
     if k + w - 2 > HALO_PAD:
         raise ValueError(f"k + w - 2 must be <= {HALO_PAD}")
     from phi_tpu_torch.ops.search import mixed_tensors
+    super_blocks = super_blocks or SUPER_BLOCKS
     row_lanes = (super_blocks + 1) * BLK
     results, rows = plan_join_rows(seqs, k, w, super_blocks)
     if not rows:
         return results
     table = mixed_tensors(sp_hi, sp_lo, device)
-    R = rows_per_call
+    R = rows_per_call or ROWS
     caps = (emit_cap(w, super_blocks), hit_cap(w, super_blocks, R))
     n_batches = -(-len(rows) // R)
     padded = rows + [(-1, 0, 0, 0)] * (n_batches * R - len(rows))
@@ -1039,14 +978,16 @@ def join_many(seqs: list[np.ndarray], k: int, w: int, sp_hi, sp_lo, *,
 
 def _seq_tensors(codes: np.ndarray, k: int, w: int, device):
     """One sequence as the single-sequence kernel takes it: codes uint8
-    [1, (nb+1)*BLK], padded with N (4), and nvalid int32 [1]."""
+    [1, (nb+1)*BLK], padded with N (4), in a fresh allocation (so aligned
+    to 16 bytes, as the kernel's packing loads need), and nvalid int32
+    [1]."""
     L = len(codes)
     n_valid = L - k - w + 2
     need = (max(1, -(-n_valid // BLK)) + 1) * BLK
-    buf = np.full(need, 4, np.uint8)
-    buf[:min(L, need)] = codes[:need]
-    return (torch.from_numpy(buf[None, :]).to(device),
-            torch.tensor([n_valid], dtype=torch.int32, device=device))
+    buf = torch.full((1, need), 4, dtype=torch.uint8, device=device)
+    n = min(L, need)
+    buf[0, :n] = torch.from_numpy(np.ascontiguousarray(codes[:n]))
+    return (buf, torch.tensor([n_valid], dtype=torch.int32, device=device))
 
 
 def _seq_minimizers(codes: np.ndarray, k: int, w: int, device):

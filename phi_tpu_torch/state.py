@@ -25,11 +25,15 @@ def graph_tensors(graph, device):
             _t(graph.walk_len, torch.int64, device))
 
 
+def spectrum_u64(sp_hi, sp_lo) -> np.ndarray:
+    """Read spectrum as uint64 keys (hi << 32) | lo, on the host."""
+    return (np.asarray(sp_hi, np.uint64) << np.uint64(32)) \
+        | np.asarray(sp_lo, np.uint64)
+
+
 def spectrum_keys(sp_hi, sp_lo, device) -> torch.Tensor:
     """Read spectrum as int64 keys (hi << 32) | lo (sorted like (hi, lo))."""
-    key = (np.asarray(sp_hi, np.uint64) << np.uint64(32)) \
-        | np.asarray(sp_lo, np.uint64)
-    return _t(key.view(np.int64), torch.int64, device)
+    return _t(spectrum_u64(sp_hi, sp_lo).view(np.int64), torch.int64, device)
 
 
 def cuckoo_tensors(ck, device):

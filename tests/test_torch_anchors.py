@@ -96,14 +96,18 @@ def test_device_anchors_zero_len_nodes(tmp_path):
     assert occ.n_occ > 0
 
 
-def test_n_walk_raises(tmp_path):
-    """Walks with N take the reference's host join; the port says so."""
+def test_n_walk_raises(tmp_path, capsys):
+    """Walks with N leave the device anchors for the host hit path: the
+    port returns None where phi_tpu does, and says why."""
     gfa = tmp_path / "n.gfa"
     gfa.write_text("H\tVN:Z:1.1\nS\ts1\tACGTNACGTACGTTGCA\n"
                    "W\tsamp\t1\tchr\t0\t17\t>s1\n")
-    graph = port_tensorize(port_read_gfa(str(gfa)))
+    jgraph, graph = _graphs(str(gfa))
     seqs = [graph.walk_seq_codes(0)]
     sp = _spectrum(["ACGTACGTTGCA"], 5, 2)
-    with pytest.raises(NotImplementedError, match="non-ACGT"):
-        join_anchors_device(graph, seqs, 5, 2, sp[0], sp[1], 1.0,
-                            device="cpu")
+    assert jax_join(jgraph, seqs, 5, 2, sp[0], sp[1], 1.0,
+                    interpret=True) is None
+    assert join_anchors_device(graph, seqs, 5, 2, sp[0], sp[1], 1.0,
+                               device="cpu") is None
+    assert "walk 0 contains non-ACGT bases; host hit path" in \
+        capsys.readouterr().err

@@ -10,8 +10,9 @@
   route's: the reference's contract that the hit path and the
   device-anchor path build the same tables.
 - Indexes load across the packages; mismatched k/w or haplotype counts
-  exit 1 with [E::main]; the routes the port has not taken over raise and
-  name their condition.
+  exit 1 with [E::main]; walks holding N and k > 31 take the host join as
+  in phi_tpu, and `--mesh`, which the port has not taken over, raises and
+  names itself.
 """
 
 import numpy as np
@@ -236,15 +237,32 @@ def _n_walk(d):
 
 
 @pytest.mark.parametrize("refusal,opt", [
-    ("walk 0 holding non-ACGT", dict(k=5, w=3)),
-    ("k=35 > 31", dict(k=35, w=25)),
+    (None, dict(k=5, w=3)),
+    (None, dict(k=35, w=25)),
     ("--mesh", dict(k=5, w=3, mesh_devices=2)),
 ], ids=["n_walk", "wide_k", "mesh"])
-def test_save_index_refusals_name_their_condition(tmp_path, refusal, opt):
-    gfa_path, reads_path = (_n_walk(tmp_path) if refusal.startswith("walk")
+def test_save_index_refusals_name_their_condition(tmp_path, jax_run,
+                                                  refusal, opt):
+    """A walk holding N and k > 31 take the host join on `--save-index`, as
+    in phi_tpu: the same FASTA and index arrays. `--mesh` stays a
+    refusal."""
+    gfa_path, reads_path = (_n_walk(tmp_path) if opt["k"] == 5
                             else _mosaic(tmp_path))
-    with pytest.raises(NotImplementedError, match=refusal):
-        run_pipeline(gfa_path, reads_path, None,
-                     Options(save_index=str(tmp_path / "i.npz"), **opt),
-                     device="cpu")
-    assert not (tmp_path / "i.npz").exists()
+    idx = tmp_path / "i.npz"
+    if refusal:
+        with pytest.raises(NotImplementedError, match=refusal):
+            run_pipeline(gfa_path, reads_path, None,
+                         Options(save_index=str(idx), **opt), device="cpu")
+        assert not idx.exists()
+        return
+    jidx = tmp_path / "j.npz"
+    want = jax_run(gfa_path, reads_path, str(tmp_path / "jax.fa"),
+                   JaxOptions(save_index=str(jidx), **opt))
+    got = run_pipeline(gfa_path, reads_path, str(tmp_path / "port.fa"),
+                       Options(save_index=str(idx), **opt), device="cpu")
+    assert _read(tmp_path / "jax.fa") == _read(tmp_path / "port.fa")
+    assert got.report_segments == want.report_segments
+    a, b = _arrays(jidx), _arrays(idx)
+    assert sorted(a) == sorted(b)
+    for key in a:
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)

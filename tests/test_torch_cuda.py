@@ -1,11 +1,11 @@
 """Card tests of the port: the rows3, rows3w, rows2, rows and seq CUDA
 kernels against their plain twins on the same CUDA tensors, at the main
-path's shape; the four tiled kernels (rows3, rows3w, rows2, rows) also
-against their direct-scan entry points on rows at the tiled design's
-edges; ptxas's report and the resident blocks per SM; and the v1 and
-single-sequence joins on the card against the same joins on the CPU. They
-skip without a CUDA device. This file imports no jax, so it also runs
-where jax is absent:
+path's shape and on inputs at the tiled design's edges (for seq, N at
+lane 0, at tile and block edges, in the last window, a run longer than
+w + k, and everywhere); ptxas's report and the resident blocks per SM; and
+the v1 and single-sequence joins on the card against the same joins on
+the CPU. They skip without a CUDA device. This file imports no jax, so it
+also runs where jax is absent:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 """
@@ -20,6 +20,8 @@ from test_torch_smoke import smoke_module
 # (k, w) of the narrow tiled kernels' edge tests: w = 1, a power of two,
 # 33 and 34 (one doubling step more or less), k + w - 2 = 128
 NARROW_EDGES = [(31, 25), (31, 99), (21, 1), (15, 16), (20, 33), (20, 34)]
+# (k, w) of seq's edge tests: the main path's, w = 1, k + w - 2 = 128
+SEQ_EDGE_KW = [(31, 25), (21, 1), (31, 99)]
 
 
 def _inputs(seed, sb, rows=8):
@@ -114,35 +116,31 @@ def test_rows2_kernel_matches_twin_on_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,w", NARROW_EDGES)
-def test_rows2_edges_match_twin_and_direct_scan_on_card(k, w):
+def test_rows2_edges_match_twin_on_card(k, w):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     args = tuple(a.cuda() for a in _edge_inputs(k + w))
     want = tk.sketch_rows2_torch(*args, k, w)
     got = tk.sketch_rows2(*args, k, w)
-    old = tk.sketch_rows2_ref(*args, k, w)
     torch.cuda.synchronize()
-    for a, b, c in zip(want, got, old):
+    for a, b in zip(want, got):
         assert torch.equal(a, b)
-        assert torch.equal(c, b)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,w,C", [(35, 25, None), (63, 67, None),
                                    (40, 1, tk.BLK), (32, 11, 64),
                                    (40, 34, None)])
-def test_rows3w_edges_match_twin_and_direct_scan_on_card(k, w, C):
+def test_rows3w_edges_match_twin_on_card(k, w, C):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     C = C or tk.block_cap(w)
     args = tuple(a.cuda() for a in _edge_inputs(k + w))
     want = tk.sketch_rows3w_torch(*args, k, w, C)
     got = tk.sketch_rows3w(*args, k, w, C)
-    old = tk.sketch_rows3w_ref(*args, k, w, C)
     torch.cuda.synchronize()
-    for a, b, c in zip(want, got, old):
+    for a, b in zip(want, got):
         assert torch.equal(a, b)
-        assert torch.equal(c, b)
     if C == 64:
         assert bool((got[3] > C).any())
 
@@ -150,35 +148,48 @@ def test_rows3w_edges_match_twin_and_direct_scan_on_card(k, w, C):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,w,C", [(k, w, None) for k, w in NARROW_EDGES]
                          + [(21, 11, 64)])
-def test_rows3_edges_match_twin_and_direct_scan_on_card(k, w, C):
+def test_rows3_edges_match_twin_on_card(k, w, C):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     C = C or tk.block_cap(w)
     args = tuple(a.cuda() for a in _edge_inputs(k + w))
     want = tk.sketch_rows3_torch(*args, k, w, C)
     got = tk.sketch_rows3(*args, k, w, C)
-    old = tk.sketch_rows3_ref(*args, k, w, C)
     torch.cuda.synchronize()
-    for a, b, c in zip(want, got, old):
+    for a, b in zip(want, got):
         assert torch.equal(a, b)
-        assert torch.equal(c, b)
     if C == 64:
         assert bool((got[2] > C).any())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,w", NARROW_EDGES)
-def test_rows_edges_match_twin_and_direct_scan_on_card(k, w):
+def test_rows_edges_match_twin_on_card(k, w):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     codes, _, nvalid, left, _ = (a.cuda() for a in _edge_inputs(k + w))
     want = tk.sketch_rows_torch(codes, nvalid, left, k, w)
     got = tk.sketch_rows(codes, nvalid, left, k, w)
-    old = tk.sketch_rows_ref(codes, nvalid, left, k, w)
     torch.cuda.synchronize()
-    for a, b, c in zip(want, got, old):
+    for a, b in zip(want, got):
         assert torch.equal(a, b)
-        assert torch.equal(c, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,w", SEQ_EDGE_KW)
+@pytest.mark.parametrize("kind", smoke_module().SEQ_EDGES)
+def test_seq_edges_match_twin_on_card(kind, k, w):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    codes = smoke_module().seq_edge_codes(kind, k, w)
+    args = tk._seq_tensors(codes, k, w, "cuda")
+    want = tk.sketch_seq_torch(*args, k, w)
+    got = tk.sketch_seq(*args, k, w)
+    torch.cuda.synchronize()
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    if kind == "all N":
+        assert not bool(got[2].any()) and bool((got[1] == -1).all())
 
 
 @pytest.mark.cuda
@@ -193,21 +204,24 @@ def test_tiled_wrappers_refuse_unaligned_codes_on_card():
         tk.sketch_rows3(shifted, nd, nvalid, left, node_off, 21, 11, 256)
     with pytest.raises(ValueError, match="aligned to 16 bytes"):
         tk.sketch_rows(shifted, nvalid, left, 21, 11)
+    with pytest.raises(ValueError, match="aligned to 16 bytes"):
+        tk.sketch_seq(shifted[:1], nvalid[:1], 21, 11)
 
 
 @pytest.mark.cuda
 def test_ptxas_and_resident_blocks_on_card():
-    """No kernel instantiation spills; rows2 and rows3w keep 48 registers
-    and 5 and 4 resident blocks per SM."""
+    """None of the five kernels spills; rows3, rows3w, rows2, rows and seq
+    run at 48 registers and 5, 4, 5, 5 and 5 resident blocks per SM."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     smoke = smoke_module()
     report = smoke.ptxas_report(tk.build_log())
-    for name in smoke.INSTANTIATIONS:
+    for name in smoke.KERNELS:
         used, spill = report[name]
         assert used and not smoke.spills(spill), (name, used, spill)
         assert tk.occupancy(name) >= 1
-    for name, blocks in (("rows2", 5), ("rows3w", 4)):
+    for name, blocks in (("rows3", 5), ("rows3w", 4), ("rows2", 5),
+                         ("rows", 5), ("seq", 5)):
         assert report[name][0].startswith("Used 48 registers"), report[name]
         assert tk.occupancy(name) == blocks
 

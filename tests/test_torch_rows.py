@@ -85,16 +85,26 @@ def _n_seq(kind: str) -> np.ndarray:
     if kind == "n_bases":  # tests/test_pallas_kernel.py's sequence
         seq = seq[:9000] + "N" * 15 + seq[9015:]
         seq = seq[:16380] + "NN" + seq[16382:]
-    else:  # N runs across the first block boundary and at both ends
+    elif kind == "boundary":  # N runs across a block boundary, both ends
         seq = "NNNNN" + seq[5:BLK - 20] + "N" * 40 + seq[BLK + 20:-3] + "NNN"
+    elif kind == "edges":  # N at the card kernel's tile and block edges
+        for at in (1023, BLK - 1, BLK + 2047, 2 * BLK - 1):
+            seq = seq[:at] + "NN" + seq[at + 2:]
+    else:  # all N
+        seq = "N" * len(seq)
     return encode_seq(seq)
 
 
-@pytest.mark.parametrize("kind", ["n_bases", "boundary"])
-def test_seq_twin_matches_pallas(kind):
+@pytest.mark.parametrize("kind,w", [
+    pytest.param("n_bases", 7, id="n_bases"),
+    pytest.param("boundary", 7, id="boundary"),
+    pytest.param("edges", 7, id="edges"),
+    pytest.param("all_n", 7, id="all_n"),
+    pytest.param("boundary", 1, id="boundary-w1")])
+def test_seq_twin_matches_pallas(kind, w):
     """Every valid lane: key, position and emit flag, including the windows
     whose k-mers all hold N (dead key -1, position -1, no emit)."""
-    k, w = 13, 7
+    k = 13
     codes = _n_seq(kind)
     n_valid = len(codes) - k - w + 2
     buf, nv = tk._seq_tensors(codes, k, w, "cpu")
@@ -110,6 +120,7 @@ def test_seq_twin_matches_pallas(kind):
     np.testing.assert_array_equal(emit_t[0, :n_valid].numpy(),
                                   np.asarray(emit)[0, :n_valid] != 0)
     assert (pos_t[0, :n_valid] == -1).any()  # some windows are all N
+    assert (kind == "all_n") == (not emit_t.any())
 
 
 def _spectrum(seqs, k, w):

@@ -321,13 +321,21 @@ def test_pipeline_v2_mixed_matches_jax(tmp_path, jax_device_path,
 
 
 def test_v2_emit_overflow_names_its_condition(tmp_path, small_cuckoo_limit,
-                                              monkeypatch):
+                                              monkeypatch, capsys):
+    """A v2 emitted-lane overflow: both packages return None (the host hit
+    path), and the port names the condition."""
+    from phi_tpu.anchors.device import join_anchors_device as jax_join
     from phi_tpu_torch.anchors import device as tdev
-    (_, graph), reads = _graph_instance(tmp_path)
+    (jgraph, graph), reads = _graph_instance(tmp_path)
     seqs = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
     sp = _spectrum(reads, 21, 11)
+    caps = jk.join_caps
+    monkeypatch.setattr(jk, "join_caps",
+                        lambda w, sb, r: (64, caps(w, sb, r)[1]))
     monkeypatch.setattr(tdev, "emit_cap", lambda w, sb: 64)
-    with pytest.raises(NotImplementedError,
-                       match="v2 emitted-lane overflow .* > emitcap=64"):
-        join_anchors_device(graph, seqs, 21, 11, sp[0], sp[1], 1.0,
-                            device="cpu", rows_per_call=R, super_blocks=SB)
+    assert jax_join(jgraph, seqs, 21, 11, sp[0], sp[1], 1.0,
+                    rows_per_call=R, super_blocks=SB, interpret=True) is None
+    assert join_anchors_device(graph, seqs, 21, 11, sp[0], sp[1], 1.0,
+                               device="cpu", rows_per_call=R,
+                               super_blocks=SB) is None
+    assert "v2 emitted-lane overflow" in capsys.readouterr().err

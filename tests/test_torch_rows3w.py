@@ -18,6 +18,7 @@ from phi_tpu_torch import state  # noqa: E402
 from phi_tpu_torch.anchors.device import (join_anchors_device,  # noqa: E402
                                           pack_batch)
 from phi_tpu_torch.ops.search import make_cuckoo  # noqa: E402
+from phi_tpu.anchors.device import join_anchors_device as jax_join  # noqa: E402
 from phi_tpu_torch.sketch import kernels as tk  # noqa: E402
 from test_torch_anchors import _compare, _graphs  # noqa: E402
 from test_torch_anchors import _instance as _graph_instance  # noqa: E402
@@ -261,29 +262,48 @@ def _dense_chop(tmp_path):
     return _graphs(path), reads
 
 
-def test_wide_refusals_name_their_condition(tmp_path, monkeypatch):
-    """k > 31 has no v2 kernel: an oversized spectrum or a dense chop take
-    the reference's host hit path, which the port does not have yet."""
+def test_wide_refusals_name_their_condition(tmp_path, monkeypatch,
+                                            capsys):
+    """k > 31 has no v2 kernel: with a dense chop or an oversized spectrum
+    both packages return None (the host hit path), and the port names the
+    condition."""
+    import phi_tpu.ops.search as js
     import phi_tpu_torch.ops.search as ts
-    (_, graph), reads = _dense_chop(tmp_path)
+    (jgraph, graph), reads = _dense_chop(tmp_path)
     seqs = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
     sp = _spectrum_wide(reads, 35, 9)
-    with pytest.raises(NotImplementedError, match="dense node chop"):
-        join_anchors_device(graph, seqs, 35, 9, sp[0], sp[1], 1.0,
-                            device="cpu", rows_per_call=R, super_blocks=1)
+
+    def both(sb):
+        want = jax_join(jgraph, seqs, 35, 9, sp[0], sp[1], 1.0,
+                        rows_per_call=R, super_blocks=sb, interpret=True)
+        got = join_anchors_device(graph, seqs, 35, 9, sp[0], sp[1], 1.0,
+                                  device="cpu", rows_per_call=R,
+                                  super_blocks=sb)
+        return want, got
+
+    assert both(1) == (None, None)
+    assert "dense node chop" in capsys.readouterr().err
+    monkeypatch.setattr(js, "CUCKOO_MAX_KEYS", 10)
     monkeypatch.setattr(ts, "CUCKOO_MAX_KEYS", 10)
-    with pytest.raises(NotImplementedError, match="does not fit the cuckoo"):
-        join_anchors_device(graph, seqs, 35, 9, sp[0], sp[1], 1.0,
-                            device="cpu", rows_per_call=R, super_blocks=SB)
+    assert both(SB) == (None, None)
+    assert "does not fit the cuckoo table; host hit path" in \
+        capsys.readouterr().err
 
 
-def test_overflow_refusals_name_their_condition(tmp_path, monkeypatch):
+def test_overflow_refusals_name_their_condition(tmp_path, monkeypatch,
+                                                capsys):
+    """A block compaction overflow: both packages return None."""
     import phi_tpu_torch.anchors.device as tdev
-    (_, graph), reads = _graph_instance(tmp_path)
+    (jgraph, graph), reads = _graph_instance(tmp_path)
     seqs = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
     sp = _spectrum_wide(reads, 35, 9)
+    monkeypatch.setattr(jk, "block_cap", lambda w: 16)
     monkeypatch.setattr(tdev, "block_cap", lambda w: 16)
-    with pytest.raises(NotImplementedError,
-                       match="block compaction overflow .* > C=16"):
-        join_anchors_device(graph, seqs, 35, 9, sp[0], sp[1], 1.0,
-                            device="cpu", rows_per_call=R, super_blocks=SB)
+    assert jax_join(jgraph, seqs, 35, 9, sp[0], sp[1], 1.0,
+                    rows_per_call=R, super_blocks=SB, interpret=True) is None
+    assert join_anchors_device(graph, seqs, 35, 9, sp[0], sp[1], 1.0,
+                               device="cpu", rows_per_call=R,
+                               super_blocks=SB) is None
+    err = capsys.readouterr().err
+    assert "block compaction overflow" in err
+    assert "> C=16); host hit path" in err

@@ -47,27 +47,23 @@ def smoke_module():
     return mod
 
 
-# The nine kernels of csrc/rows.cu as the Itanium C++ ABI mangles them
-# (y: unsigned long long, Lb1E: true, Li256E: 256; g++ gives the same
-# names for the same templates): the namespace, the kernel with its
-# template arguments, the parameters.
+# The five kernels of csrc/rows.cu as the Itanium C++ ABI mangles them
+# (y: unsigned long long, Lb1E: true; g++ gives the same names for the same
+# templates): the namespace, tiled_kernel<K, COMPACT, POS, NCODE>, the
+# parameters.
 _NS, _PARAMS = "_ZN12_GLOBAL__N_1", "EvNS_6RowsInENS_7RowsOutE"
 _MANGLED = {
-    "rows3": "12tiled_kernelIyLb1ELb0EE",
-    "rows3w": "12tiled_kernelINS_7Key128vELb1ELb0EE",
-    "rows2": "12tiled_kernelIyLb0ELb0EE",
-    "rows": "12tiled_kernelIyLb0ELb1EE",
-    "seq": "11rows_kernelIyLb0ELb1ELb1ELi256EE",
-    "rows3_ref": "11rows_kernelIyLb1ELb0ELb0ELi256EE",
-    "rows3w_ref": "11rows_kernelINS_6Key128ELb1ELb0ELb0ELi512EE",
-    "rows2_ref": "11rows_kernelIyLb0ELb0ELb0ELi256EE",
-    "rows_ref": "11rows_kernelIyLb0ELb1ELb0ELi256EE",
+    "rows3": "12tiled_kernelIyLb1ELb0ELb0EE",
+    "rows3w": "12tiled_kernelINS_7Key128vELb1ELb0ELb0EE",
+    "rows2": "12tiled_kernelIyLb0ELb0ELb0EE",
+    "rows": "12tiled_kernelIyLb0ELb1ELb0EE",
+    "seq": "12tiled_kernelIyLb0ELb1ELb1EE",
 }
 
 
 def test_ptxas_report_names_every_instantiation():
-    """A -Xptxas -v log of the nine kernels (each with its own register
-    count, all but the first with a spill) is parsed to the nine entry
+    """A -Xptxas -v log of the five kernels (each with its own register
+    count, all but the first with a spill) is parsed to the five entry
     point names, each with its own lines."""
     smoke = smoke_module()
     lines = []
@@ -81,8 +77,8 @@ def test_ptxas_report_names_every_instantiation():
                   f"ptxas info    : Used {40 + i} registers, used 1 "
                   f"barriers, 32 bytes smem, 400 bytes cmem[0]"]
     report = smoke.ptxas_report("\n".join(lines))
-    assert sorted(report) == sorted(smoke.INSTANTIATIONS)
-    assert sorted(_MANGLED) == sorted(smoke.INSTANTIATIONS)
+    assert sorted(report) == sorted(smoke.KERNELS)
+    assert sorted(_MANGLED) == sorted(smoke.KERNELS)
     for i, name in enumerate(_MANGLED):
         used, spill = report[name]
         assert used.startswith(f"Used {40 + i} registers"), name
