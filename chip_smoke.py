@@ -55,8 +55,24 @@ Phases, in order; any failure exits non-zero:
      native join of every walk (sketch_join_walks), no kernel launch, and
      phase 5's warm FASTA; (c) -k 31 -w 100 -R 100 (k + w - 2 beyond the
      kernels' halo): the native join of every walk, no kernel launch, a
-     FASTA.
-Phases 4-9 set every kernel's launch count to 0 just before each run and
+     FASTA;
+ 10. a zero-length chain on the 49 x 5 Mbp instance: 80 empty segments
+     inserted after a variant allele node that a retained occurrence
+     crosses, in every walk that visits it (the walk sequences, reads and
+     truth unchanged), at -k 31 -w 25 -R 100: the device anchors hand over
+     ([W::anchors] ... spans past 63 walk positions), rows runs (the host
+     hit path), the bracket solve runs on cuda; a certified run must write
+     phase 4's warm FASTA (an uncertified one is reported, not failed);
+ 11. the phase-4 run through the CLI with -d 1 --race on: exit 0, the
+     sharing histogram sums to 1, the model dump's summary line, one seq
+     launch per walk, phase 4's warm FASTA; and -d 1 on the phase-3
+     instance prints the same debug lines on cuda and on cpu;
+ 12. VCF ingest at MHC scale: a seeded 5 Mbp reference and VCF (1% sites,
+     5% indels, an overlapping pair every 1,000 sites, 24 phased diploid
+     samples), converted by `python -m phi_tpu_torch.vcfio.vcf2graph`
+     into 49 walks, and 1x reads of a 2-switch mosaic of two sample
+     haplotypes through the rows3 route at -k 31 -w 25 -R 100; certified.
+Phases 4-12 set every kernel's launch count to 0 just before each run and
 read them just after. The second-to-last line is the kernels JSON, the
 last the device JSON. Instances are generated from a seed into
 phi_tpu_torch/_build/scale/.
@@ -64,6 +80,8 @@ phi_tpu_torch/_build/scale/.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -388,7 +406,8 @@ def report(label: str, r, wall: float, launches, peak: int, truth: str,
     log(f"{label}: peak device memory {peak} B ({CARD}); launches "
         f"{json.dumps(launches)}; spectrum {r.anchors.spectrum_size} keys; "
         f"{anchors}; solver on "
-        f"{r.decode.solver_device}; gap {gap:.3f} (certified "
+        f"{r.decode.solver_device}, {r.decode.n_sweeps} DP sweeps; gap "
+        f"{gap:.3f} (certified "
         f"{gap <= gap_tol(R)}); recombinations {r.recombination_count}; "
         f"edit distance to truth {es.edit_distance} (identity "
         f"{es.identity:.6f})")
@@ -515,6 +534,215 @@ def n_walk_copy(graph, src: str, dst: str):
 def read_truth(paths) -> str:
     with open(paths["truth"]) as f:
         return "".join(ln.strip() for ln in f if not ln.startswith(">"))
+
+
+@contextlib.contextmanager
+def stderr_tee():
+    """Everything written to sys.stderr inside the block still goes there,
+    and also into the StringIO it yields (the [W::] and [D] lines)."""
+    buf, real = io.StringIO(), sys.stderr
+
+    class Tee:
+        def write(self, s):
+            buf.write(s)
+            return real.write(s)
+
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+    sys.stderr = Tee()
+    try:
+        yield buf
+    finally:
+        sys.stderr = real
+
+
+def chain_site(r):
+    """(h, i): walk position i of walk h, whose node v some but not all
+    walks visit, every walk that visits v leaves to the same node, and a
+    retained occurrence of run r crosses from v into that node (the first
+    such occurrence of r's anchors)."""
+    import numpy as np
+    g, a = r.graph, r.anchors
+    a.materialize_device()
+    wm, wl = g.walk_mat, g.walk_len
+    cols = np.arange(wm.shape[1])[None, :]
+    inner = cols < (wl - 1)[:, None]          # lane states with a successor
+    u = wm[:, :-1][inner[:, :-1]].astype(np.int64)
+    s = wm[:, 1:][inner[:, :-1]].astype(np.int64)
+    pairs = np.unique(u * g.n_vtx + s)
+    n_succ = np.bincount(pairs // g.n_vtx, minlength=g.n_vtx)
+    visits = np.bincount(wm[wm >= 0], minlength=g.n_vtx)
+    ends = np.zeros(g.n_vtx, bool)
+    ends[wm[np.arange(g.num_walks), wl - 1]] = True
+    cand = (n_succ == 1) & (visits < g.num_walks) & ~ends
+    is_cand = np.where(wm >= 0, cand[np.maximum(wm, 0)], False) & inner
+    csum = np.concatenate([np.zeros((len(wm), 1), np.int64),
+                           np.cumsum(is_cand, axis=1)], axis=1)
+    # an occurrence covers walk positions [start, end): it crosses the
+    # edges out of start .. end - 2
+    h, st, en = a.occ_hap, a.occ_start, a.occ_end
+    hit = np.flatnonzero(csum[h, en - 1] - csum[h, st] > 0)
+    if not len(hit):
+        raise RuntimeError("no retained occurrence crosses a variant allele "
+                           "node with one successor")
+    o = hit[0]
+    i = int(st[o]) + int(np.argmax(is_cand[h[o], st[o]:en[o] - 1]))
+    return int(h[o]), i
+
+
+@contextlib.contextmanager
+def spy(module, name: str):
+    """Wrap module.name for the block: every call still runs, and its
+    return value is appended to the list the block gets."""
+    real, seen = getattr(module, name), []
+
+    def wrapped(*args, **kwargs):
+        out = real(*args, **kwargs)
+        seen.append(out)
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+def debug_lines(err: str) -> list[str]:
+    """The -d lines of a run's stderr: the sharing histogram and [D]."""
+    return [ln for ln in err.splitlines()
+            if ln.startswith(("[D]", "[Haplotypes:", "Shared fraction"))]
+
+
+def cli_counted(argv):
+    """One run of the CLI's main (the card unless argv says --device cpu)
+    with every kernel's launch count set to 0 just before it and its stderr
+    kept; returns (exit code, the run's PipelineResult or None, wall s,
+    launches by name, peak device memory B, stderr)."""
+    import torch
+    from phi_tpu_torch import cli, pipeline
+    from phi_tpu_torch.sketch import kernels as tk
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for n in KERNELS:
+        getattr(tk, f"sketch_{n}").launches = 0
+    t0 = time.time()
+    with stderr_tee() as err, spy(pipeline, "run_pipeline") as runs:
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {n: getattr(tk, f"sketch_{n}").launches for n in KERNELS}
+    return (rc, runs[0] if runs else None, wall, launches,
+            torch.cuda.max_memory_allocated(), err.getvalue())
+
+
+def chain_copy(r, dst: str, n: int = 80):
+    """Write the graph of run r to dst with a chain of n empty segments
+    z0..z{n-1} after the node v of chain_site(r), in every walk that visits
+    v (links v -> z0 -> ... -> z{n-1} -> the node after v, in place of
+    v -> that node). The walk sequences do not change, so r's reads and
+    truth still apply, and a k-mer of r's model now spans the chain.
+    Returns (v's name, the walks that visit it)."""
+    import dataclasses
+    import numpy as np
+    from phi_tpu_torch.io.gfa import write_gfa
+    h, i = chain_site(r)
+    gd = r.graph.gfa
+    v, nxt = int(gd.walks[h][i]), int(gd.walks[h][i + 1])
+    z = np.arange(gd.n_vtx, gd.n_vtx + n, dtype=np.int32)
+    walks, holders = [], []
+    for j, wk in enumerate(gd.walks):
+        at = np.flatnonzero(wk == v)
+        if len(at):
+            holders.append(j)
+            wk = np.insert(wk, int(at[0]) + 1, z)
+        walks.append(wk)
+    keep = ~((gd.edge_u == v) & (gd.edge_v == nxt))
+    chain_u = np.concatenate([[v], z])
+    chain_v = np.concatenate([z, [nxt]])
+    out = dataclasses.replace(
+        gd, seg_names=gd.seg_names + [f"z{j}" for j in range(n)],
+        node_len=np.concatenate([gd.node_len, np.zeros(n, np.int64)]),
+        node_off=np.concatenate([gd.node_off,
+                                 np.full(n, gd.node_off[-1], np.int64)]),
+        edge_u=np.concatenate([gd.edge_u[keep], chain_u]).astype(np.int32),
+        edge_v=np.concatenate([gd.edge_v[keep], chain_v]).astype(np.int32),
+        walks=walks,
+        seg_tags=gd.seg_tags + [""] * n if gd.seg_tags else gd.seg_tags)
+    os.makedirs(os.path.dirname(dst), exist_ok=True)
+    write_gfa(out, path=dst)
+    return gd.seg_names[v], holders
+
+
+def write_vcf(ref_path: str, vcf_path: str, length: int, n_samples: int,
+              seed: int = 0, var_rate: float = 0.01,
+              indel_fraction: float = 0.05, overlap_every: int = 1000):
+    """A random reference of `length` bases (contig chr6, FASTA) and a VCF
+    of biallelic sites at var_rate: indel_fraction of them indels (half
+    insertions, half deletions of 1-5 bases), the rest SNPs; every
+    overlap_every-th site an overlapping pair instead (a 4-base deletion
+    and a SNP inside it); n_samples phased diploid samples S0..S{n-1}, each
+    site at its own allele frequency in 0.1-0.9. Returns (ref, records),
+    records sorted by position as (pos, REF, ALT, alt mask bool
+    [2 * n_samples]) with haplotype 2 s + j the walk S{s}.{j}."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+
+    def rand_seq(m):
+        return acgt[rng.integers(0, 4, m)].tobytes().decode()
+
+    ref = rand_seq(length)
+    n_sites = int(length * var_rate)
+    pos = np.sort(rng.choice(np.arange(1, length - 10), n_sites,
+                             replace=False))
+    sites = []
+    for j, p in enumerate(pos.tolist()):
+        kind = rng.random()
+        if j % overlap_every == overlap_every // 2:
+            sites.append((p, ref[p:p + 5], ref[p]))
+            p, kind = p + 2, 1.0
+        if kind < indel_fraction / 2:
+            sites.append((p, ref[p], ref[p] + rand_seq(int(rng.integers(1, 6)))))
+        elif kind < indel_fraction:
+            sites.append((p, ref[p:p + 1 + int(rng.integers(1, 6))], ref[p]))
+        else:
+            sites.append((p, ref[p], "ACGT"[("ACGT".index(ref[p])
+                                             + int(rng.integers(1, 4))) % 4]))
+    freq = rng.uniform(0.1, 0.9, len(sites))
+    alt = rng.random((len(sites), 2 * n_samples)) < freq[:, None]
+    order = sorted(range(len(sites)), key=lambda j: sites[j][0])
+    records = [(*sites[j], alt[j]) for j in order]
+    with open(ref_path, "w") as f:
+        f.write(">chr6\n")
+        f.writelines(ref[j:j + 80] + "\n" for j in range(0, length, 80))
+    gt = np.array(["0", "1"])
+    with open(vcf_path, "w") as f:
+        f.write("##fileformat=VCFv4.2\n"
+                f"##contig=<ID=chr6,length={length}>\n"
+                "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+                + "\t".join(f"S{s}" for s in range(n_samples)) + "\n")
+        for p, ra, aa, m in records:
+            g = gt[m.astype(np.int64)]
+            f.write(f"chr6\t{p + 1}\t.\t{ra}\t{aa}\t.\tPASS\t.\tGT\t"
+                    + "\t".join(np.char.add(np.char.add(g[0::2], "|"),
+                                            g[1::2])) + "\n")
+    return ref, records
+
+
+def realize(ref: str, records, hap: int) -> str:
+    """Haplotype `hap`'s sequence under write_vcf's records, as the
+    converter realizes it: alleles in position order, an alt allele that
+    overlaps one already applied dropped."""
+    parts, cur = [], 0
+    for p, ra, aa, m in records:
+        if not m[hap] or p < cur:
+            continue
+        parts += [ref[cur:p], aa]
+        cur = p + len(ra)
+    parts.append(ref[cur:])
+    return "".join(parts)
 
 
 def main() -> int:
@@ -831,6 +1059,120 @@ def main() -> int:
                      os.path.join(bdir, "port_k35_warm.fa")):
         return fail("phase 9b: FASTA differs from phase 5 (warm)")
     log("phase 9: 9b FASTA == phase 5 warm FASTA; 9c wrote its FASTA")
+
+    # --- phase 10: a chain of 80 empty nodes, the bracket solve ---
+    from phi_tpu_torch import pipeline
+    # the same file name as the instance's graph: the FASTA header names it
+    chain_paths = dict(big, gfa=os.path.join(bdir, "chain", "graph.gfa"))
+    node, holders = chain_copy(save_run, chain_paths["gfa"])
+    log(f"phase 10: 80 empty segments after node {node}, in the "
+        f"{len(holders)} walks that visit it")
+    chain_fa = os.path.join(bdir, "port_chain.fa")
+    with stderr_tee() as said, spy(pipeline, "solve_dp_both") as bracket:
+        r, wall, n, peak = run_counted(chain_paths, chain_fa, flags, dev)
+    certified = report("phase 10 chain", r, wall, n, peak, truth, 100.0)
+    span = int((r.anchors.occ_end - r.anchors.occ_start).max())
+    same = same_file(chain_fa, main_fa)
+    log(f"phase 10: max span {span} walk positions; {len(bracket)} bracket "
+        f"solves on {sorted({b[0][0].M.device.type for b in bracket})}, "
+        f"sweeps {max((b[2] for b in bracket), default=0)} (the chosen "
+        f"path's {r.decode.n_sweeps}); bound {r.decode.dp_objective:.3f}, "
+        f"objective {r.decode.true_objective:.3f}, certified {certified}; "
+        f"FASTA == phase 4 warm FASTA: {same}")
+    if "spans past 63 walk positions" not in said.getvalue():
+        return fail("phase 10: the device anchors did not hand over")
+    if n["rows"] <= 0 or n["rows3"] != 0:
+        return fail(f"phase 10 launches: {json.dumps(n)}")
+    if not bracket or not on_cuda(r) or any(
+            b[0][0].M.device.type != "cuda" for b in bracket):
+        return fail("phase 10: no bracket solve, or solver tensors not on "
+                    "cuda")
+    if certified and not same:
+        return fail("phase 10: certified, but the FASTA differs from phase 4")
+
+    # --- phase 11: -d 1 and --race on through the CLI ---
+    dbg_fa = os.path.join(bdir, "port_debug.fa")
+    rc, r, wall, n, peak, said = cli_counted(
+        ["-g", big["gfa"], "-r", big["reads"], "-o", dbg_fa] + flags
+        + ["-d", "1", "--race", "on"])
+    if rc != 0 or r is None:
+        return fail(f"phase 11: the CLI exited {rc}")
+    report("phase 11 -d 1 --race on", r, wall, n, peak, truth, 100.0)
+    lines = debug_lines(said)
+    hist = [float(ln.split(": ")[-1].rstrip("]")) for ln in lines
+            if ln.startswith("[Haplotypes:")]
+    n_seg = sum(ln.startswith("[D] segment") for ln in lines)
+    log(f"phase 11: {len(lines)} debug lines, {n_seg} [D] segment lines, "
+        f"histogram over {len(hist)} walks sums to {sum(hist):.6f}; "
+        f"{n['seq']} seq launches")
+    if abs(sum(hist) - 1.0) > 1e-4 or len(hist) != r.graph.num_walks:
+        return fail("phase 11: the sharing histogram does not sum to 1")
+    if not any("model dump skipped (too large)" in ln for ln in lines):
+        return fail("phase 11: no model dump summary line")
+    if "--race on: no effect" not in said or n_seg < 1:
+        return fail("phase 11: no --race line or no [D] segment line")
+    if n["seq"] != r.graph.num_walks:
+        return fail(f"phase 11: {n['seq']} seq launches for "
+                    f"{r.graph.num_walks} walks")
+    if not same_file(dbg_fa, main_fa):
+        return fail("phase 11: FASTA differs from phase 4 (warm)")
+    small_lines = {}
+    for d in ("cuda", "cpu"):
+        out = os.path.join(os.path.dirname(small["gfa"]), f"port_d_{d}.fa")
+        rc, _, _, _, _, said = cli_counted(
+            ["-g", small["gfa"], "-r", small["reads"], "-o", out, "-d", "1",
+             "--device", d])
+        small_lines[d] = debug_lines(said)
+        if rc != 0:
+            return fail(f"phase 11: the small -d 1 run on {d} exited {rc}")
+    if small_lines["cuda"] != small_lines["cpu"]:
+        return fail("phase 11: the small instance's debug lines differ "
+                    "between cuda and cpu")
+    log(f"phase 11: FASTA == phase 4 warm FASTA; small 4x200kbp: "
+        f"{len(small_lines['cuda'])} debug lines, cuda == cpu")
+
+    # --- phase 12: VCF ingest at MHC scale ---
+    from phi_tpu_torch.eval.synth import sample_reads
+    vdir = os.path.join(BUILD, "scale", "vcf_24x2_5M")
+    os.makedirs(vdir, exist_ok=True)
+    vpaths = {"gfa": os.path.join(vdir, "graph.gfa"),
+              "reads": os.path.join(vdir, "reads.fa")}
+    ref_fa, vcf = os.path.join(vdir, "ref.fa"), os.path.join(vdir, "v.vcf")
+    t0 = time.time()
+    ref, records = write_vcf(ref_fa, vcf, 5_000_000, 24, seed=0)
+    t_vcf = time.time() - t0
+    t0 = time.time()
+    with open(vpaths["gfa"], "w") as f:
+        conv = subprocess.run(
+            [sys.executable, "-m", "phi_tpu_torch.vcfio.vcf2graph", "-v", vcf,
+             "-r", ref_fa], stdout=f, stderr=subprocess.PIPE, text=True,
+            cwd=ROOT, timeout=600)
+    t_conv = time.time() - t0
+    if conv.returncode != 0:
+        return fail(f"phase 12: vcf2graph exited {conv.returncode}: "
+                    f"{conv.stderr[-2000:]}")
+    haps = [realize(ref, records, h) for h in (3, 40)]
+    m = min(map(len, haps))
+    reads, target = sample_reads(
+        np.random.default_rng(12), [h[:m] for h in haps], coverage=1.0,
+        read_len=150, error_rate=0.002,
+        recomb_breaks=[(m // 3, 1), (2 * m // 3, 0)])
+    with open(vpaths["reads"], "w") as f:
+        f.writelines(f">r{i}\n{s}\n" for i, s in enumerate(reads))
+    log(f"phase 12: {len(records)} VCF records, 24 samples, written in "
+        f"{t_vcf:.3f} s; vcf2graph {t_conv:.3f} s ({card}), GFA "
+        f"{os.path.getsize(vpaths['gfa'])} B; {len(reads)} reads of a "
+        f"2-switch mosaic of S1.1 and S20.0")
+    r, wall, n, peak = run_counted(vpaths, os.path.join(vdir, "port.fa"),
+                                   flags, dev)
+    certified = report("phase 12 VCF", r, wall, n, peak, target, 100.0)
+    log(f"phase 12: {r.graph.num_walks} walks, {r.graph.n_vtx} nodes; "
+        f"certified {certified}")
+    if r.graph.num_walks != 49 or n["rows3"] <= 0 or not on_cuda(r):
+        return fail(f"phase 12: {r.graph.num_walks} walks, launches "
+                    f"{json.dumps(n)}")
+    if not certified:
+        return fail("phase 12: the VCF run is not certified")
 
     replaces = {"rows3": 1000, "rows3w": 1340, "rows2": 688, "rows": 237,
                 "seq": 57}

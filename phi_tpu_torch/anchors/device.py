@@ -25,9 +25,13 @@ haplotypes, k + w - 2 beyond the kernels' halo, k > 31 with a spectrum too
 large for the cuckoo table or a dense node chop, no walk as long as a
 window, an emit, hit or compaction overflow, unresolved ownership),
 join_anchors_device returns None, as the reference does, and says why on
-stderr; the pipeline then takes the host hit path. Any other failure, of
-a kernel's build or launch among them, raises. The 32-bit hashes run in
-int64 lanes masked to 32 bits.
+stderr; the pipeline then takes the host hit path. It also returns None
+where a k-mer may span more than 63 walk positions (a chain of empty
+nodes): the kernels pack a span in 6 bits, clamped at 63, which the
+reference's device route has too (a known fault of the reference) and
+the host hit path does not. Any other failure, of a kernel's build or
+launch among them, raises. The 32-bit hashes run in int64 lanes masked to
+32 bits.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from phi_tpu_torch.sketch.kernels import (BLK, HALO_PAD, NARROW_MAX_K, ROWS,
                                           join_rows3, join_rows3w,
                                           pack_row_deltas, pack_row_left,
                                           pack_rows_2bit, row_base_nodes)
+from phi_tpu_torch.solve.prep import max_kmer_span
 
 _M32 = 0xFFFFFFFF
 # independent odd multipliers for the two polynomial prefix-hash moduli
@@ -229,6 +234,13 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
     if k + w - 2 > HALO_PAD:
         _fallback(f"k + w - 2 = {k + w - 2} > {HALO_PAD} (the kernels' "
                   f"halo)")
+        return None
+    span = max_kmer_span(graph, k)
+    if span > _MAX_SPAN - 1:
+        # the packed interval clamps its span to 63; the host hit path's
+        # are exact (without empty nodes a span is at most k - 1 <= 62)
+        _fallback(f"k-mers may span {span} > {_MAX_SPAN - 1}: spans past "
+                  f"{_MAX_SPAN - 1} walk positions (zero-length node chains)")
         return None
     if int(graph.walk_len.max(initial=0)) >= 1 << 26:
         raise ValueError("a walk has >= 2^26 positions: the packed "

@@ -5,7 +5,9 @@ the host from per-haplotype join hits (the hit path of `--save-index` and
 `--load-index`) through the native library. `_anchor_tables_from_hits_py`
 is the JAX package's numpy reference of that call, kept for the tests; the
 run path has no fallback to it. The device-anchor route builds its tables
-in anchors/device.py.
+in anchors/device.py. `sketch_haplotypes` (per-walk minimizers, on the seq
+kernel) and `build_anchor_tables` (their join against a read spectrum on
+the host) serve `-d` and the frontier runner.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import numpy as np
 
 from phi_tpu_torch import native
 from phi_tpu_torch.graph.pangenome import PangenomeGraph
+from phi_tpu_torch.sketch.encode import combine64
+from phi_tpu_torch.sketch.kernels import NARROW_MAX_K, sketch_sequence
 
 
 @dataclasses.dataclass
@@ -71,6 +75,45 @@ def credit_arrays(graph: PangenomeGraph, t: AnchorTables
     H, P = graph.walk_mat.shape
     return credit_arrays_from_occ(t.occ_hap, t.occ_start, t.occ_end,
                                   t.occ_weight, H, P)
+
+
+def sketch_haplotypes(graph: PangenomeGraph, k: int, w: int, *, device
+                      ) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Per-walk minimizers (hi, lo, base position), the reference's
+    index_kmers: the seq kernel on `device` for k <= 31, the native scan
+    for 31 < k <= 63 (folded keys), as the JAX package does."""
+    out = []
+    for h in range(graph.num_walks):
+        codes = graph.walk_seq_codes(h)
+        if k > NARROW_MAX_K:
+            out.append(native.minimizers_native(codes, k, w))
+        else:
+            out.append(sketch_sequence(codes, k, w, device=device))
+    return out
+
+
+def build_anchor_tables(graph: PangenomeGraph, k: int,
+                        hap_sketches: list[tuple[np.ndarray, np.ndarray,
+                                                 np.ndarray]],
+                        read_spectrum: tuple[np.ndarray, np.ndarray],
+                        threshold: float) -> AnchorTables:
+    """Anchor tables from per-walk sketches and a sorted read spectrum
+    (hi, lo): each walk's minimizers joined against the spectrum by binary
+    search on the host, then anchor_tables_from_hits."""
+    sp_key = combine64(*read_spectrum)
+    spectrum_size = len(sp_key)
+    hits: list[tuple[int, np.ndarray, np.ndarray]] = []
+    for hi, lo, pos in hap_sketches:
+        if len(hi) == 0 or spectrum_size == 0:
+            hits.append((len(hi), np.zeros(0, np.int32),
+                         np.zeros(0, np.int32)))
+            continue
+        key = combine64(hi, lo)
+        idx = np.searchsorted(sp_key, key)
+        hit = sp_key[np.minimum(idx, spectrum_size - 1)] == key
+        hits.append((len(hi), pos[hit].astype(np.int32),
+                     idx[hit].astype(np.int32)))
+    return anchor_tables_from_hits(graph, k, hits, spectrum_size, threshold)
 
 
 def anchor_tables_from_hits(graph: PangenomeGraph, k: int,

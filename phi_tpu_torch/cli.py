@@ -12,10 +12,15 @@
 re-solve with other solver parameters skips all sketching. Both need k <= 31
 and walks of A/C/G/T only.
 
+-d 1 prints the reference's debug detail: the k-mer sharing histogram,
+a model dump (one summary line for a large model) and the chosen path's
+[D] segment lines. --race {auto,on,off} is accepted so that `phi` command
+lines run unchanged, and does nothing: the reference races a CPU run only
+against a remote TPU's first compiles.
+
 --device cuda (the default) needs a CUDA device: without one the command
-prints [E::main] and exits 1; it never runs on the CPU instead. --mesh,
---race and -d are not ported yet and are rejected the same way, as are the
-routes the port has not taken over (each names its condition).
+prints [E::main] and exits 1; it never runs on the CPU instead. --mesh is
+not ported yet and is rejected the same way.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-N", type=int, default=0, help="naive expanded graph (compat) [0]")
     p.add_argument("-t", type=int, default=0, help="host threads (0 = auto)")
     p.add_argument("-c", type=int, default=5000, help="max k-mer occurrence (compat) [5000]")
-    p.add_argument("-d", type=int, default=0, help="debug mode (not yet ported) [0]")
+    p.add_argument("-d", type=int, default=0, help="debug mode [0]")
     p.add_argument("--sweeps", type=int, default=256, help="DP sweep cap [256]")
     p.add_argument("--lagrangian", type=int, default=8,
                    help="Lagrangian refinement rounds when gap > 0 [8]")
@@ -56,7 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write the spectrum + join-hit checkpoint here")
     p.add_argument("--load-index", default=None, metavar="NPZ",
                    help="solve from a checkpoint (skips reads and sketching)")
-    p.add_argument("--race", default=None, help="(not yet ported)")
+    p.add_argument("--race", choices=["auto", "on", "off"], default=None,
+                   help="accepted for phi command lines; no effect")
     p.add_argument("--version", action="store_true", help="print version")
     return p
 
@@ -76,17 +82,18 @@ def main(argv: list[str] | None = None) -> int:
     if args.version:
         print(f"PHI version: {__version__}")
         return 0
-    for flag, val in (("--mesh", args.mesh), ("--race", args.race),
-                      ("-d", args.d)):
-        if val:
-            sys.stderr.write(f"[E::main] {flag} is not yet ported to "
-                             "phi_tpu_torch\n")
-            return 1
+    if args.mesh:
+        sys.stderr.write("[E::main] --mesh is not yet ported to "
+                         "phi_tpu_torch\n")
+        return 1
     if not (args.gfa and args.out and (args.reads or args.load_index)):
         build_parser().print_usage(sys.stderr)
         return 1
 
     plog.reset_timer()
+    if args.race:
+        plog.log("main", f"--race {args.race}: no effect (phi races a CPU run "
+                 "only against a remote TPU's first compiles)")
     try:
         from phi_tpu_torch.pipeline import resolve_device, run_pipeline
         device = resolve_device(args.device)

@@ -112,6 +112,12 @@ def _get_lib_locked() -> ctypes.CDLL | None:
                                  ctypes.c_int,
                                  ctypes.POINTER(ctypes.c_uint64), c_i64]
 
+    lib.phi_minimizers.restype = c_i64
+    lib.phi_minimizers.argtypes = [c_u8p, c_i64, ctypes.c_int, ctypes.c_int,
+                                   ctypes.POINTER(ctypes.c_uint32),
+                                   ctypes.POINTER(ctypes.c_uint32), c_i32p,
+                                   c_i64]
+
     u64p = ctypes.POINTER(ctypes.c_uint64)
     lib.phi_hap_join.restype = c_i64
     lib.phi_hap_join.argtypes = [c_u8p, c_i64, ctypes.c_int, ctypes.c_int,
@@ -332,6 +338,28 @@ def spectrum_native(concat: np.ndarray, off: np.ndarray, k: int, w: int
             return None
         if cnt <= cap:
             return out[:cnt].copy()
+        cap = int(cnt)
+
+
+def minimizers_native(codes: np.ndarray, k: int, w: int):
+    """(hi uint32, lo uint32, pos int32) minimizers of one sequence by the
+    native scan, the only one for 31 < k <= 63 (hi/lo then halve the
+    folded 64-bit key). Raises if the library is missing."""
+    lib = _need_lib()
+    cc = np.ascontiguousarray(codes, np.uint8)
+    n = len(cc)
+    cap = max(1024, 4 * n // (w + 1) + 64)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    while True:
+        hi = np.empty(cap, np.uint32)
+        lo = np.empty(cap, np.uint32)
+        pos = np.empty(cap, np.int32)
+        cnt = lib.phi_minimizers(cc.ctypes.data_as(c_u8p), n, k, w,
+                                 hi.ctypes.data_as(u32p),
+                                 lo.ctypes.data_as(u32p),
+                                 pos.ctypes.data_as(c_i32p), cap)
+        if cnt <= cap:
+            return hi[:cnt].copy(), lo[:cnt].copy(), pos[:cnt].copy()
         cap = int(cnt)
 
 

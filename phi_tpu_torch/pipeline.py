@@ -10,7 +10,9 @@ one of two anchor routes:
   * the hit path (`--save-index`, an empty read spectrum, or where the
     device anchors return None, as the reference's do: walks holding N,
     more than 255 haplotypes, k + w - 2 beyond the kernels' halo, wide k
-    off the cuckoo table, overflows): per-haplotype hits from the v1 join
+    off the cuckoo table, overflows; and k-mers that may span more than 63
+    walk positions, across chains of empty nodes, which the kernels'
+    6-bit span would clamp): per-haplotype hits from the v1 join
     on the device (`sketch.kernels.join_many`, the rows kernel, with the
     native host join for walks holding N) or, for k > 31 or k + w - 2
     beyond the halo, from the native host join of every walk
@@ -19,9 +21,13 @@ one of two anchor routes:
     hits, and `--load-index` reads them back instead of the reads, so a
     re-solve with other solver parameters skips all sketching
     (checkpoint.py).
-Then the exact-credit DP on the device (solve/dp.py); decode, the
-Lagrangian / subgradient / exact / branch-and-bound certification ladder
-and emit on the host.
+Then the exact-credit DP on the device (solve/dp.py), or, where spans
+need more than MAX_LAYERS straddle layers, the bracket solve (the search
+and the optimistic fixpoints, both decoded); decode, the Lagrangian /
+subgradient / exact / branch-and-bound certification ladder and emit on
+the host. With `-d` (opt.debug) the run also prints the reference's
+k-mer sharing histogram (after the sketch), a model dump and the chosen
+path's `[D]` segment lines (after the solve).
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ import torch
 from phi_tpu_torch import logging as plog
 from phi_tpu_torch import native
 from phi_tpu_torch.anchors.device import join_anchors_device
-from phi_tpu_torch.anchors.join import AnchorTables, anchor_tables_from_hits
+from phi_tpu_torch.anchors.join import (AnchorTables, anchor_tables_from_hits,
+                                        sketch_haplotypes)
 from phi_tpu_torch.checkpoint import load_index, save_index
 from phi_tpu_torch.config import Options
 from phi_tpu_torch.emit import recombination_report
@@ -43,11 +50,12 @@ from phi_tpu_torch.graph.pangenome import PangenomeGraph, tensorize
 from phi_tpu_torch.io.fasta import hap_name_from_paths, write_fasta
 from phi_tpu_torch.io.gfa import read_gfa
 from phi_tpu_torch.io.reads import load_read_batch
+from phi_tpu_torch.sketch.encode import combine64
 from phi_tpu_torch.sketch.kernels import HALO_PAD, NARROW_MAX_K, join_many
 from phi_tpu_torch.sketch.minimizer import host_join_many, sketch_join_walks
 from phi_tpu_torch.solve.decode import DecodeResult, decode_path
-from phi_tpu_torch.solve.dp import LAST_TIMINGS, solve_dp
-from phi_tpu_torch.solve.prep import build_solver_tables
+from phi_tpu_torch.solve.dp import LAST_TIMINGS, solve_dp, solve_dp_both
+from phi_tpu_torch.solve.prep import build_solver_tables, solver_layers
 
 _NOT_PORTED = "not yet ported to phi_tpu_torch"
 
@@ -105,9 +113,8 @@ def read_spectrum(reads, k: int, w: int) -> tuple[np.ndarray, np.ndarray]:
 def run_pipeline(gfa_path: str, reads_path: str | None, out_path: str | None,
                  opt: Options, device="cuda") -> PipelineResult:
     device = resolve_device(device)
-    for flag, val in (("--mesh", opt.mesh_devices), ("-d", opt.debug)):
-        if val:
-            raise NotImplementedError(f"{flag} is {_NOT_PORTED}")
+    if opt.mesh_devices:
+        raise NotImplementedError(f"--mesh is {_NOT_PORTED}")
     if not native_available():
         raise RuntimeError(_NO_NATIVE)
     if opt.num_threads:
@@ -121,7 +128,8 @@ def run_pipeline(gfa_path: str, reads_path: str | None, out_path: str | None,
                          "(is it a GFA v1.1 file?)")
     if graph.num_walks == 0:
         raise ValueError(f"{gfa_path} has no W-line haplotype walks; PHI "
-                         "requires walks (convert VCF input with phi-vcf2gfa)")
+                         "requires walks (convert VCF input with python -m "
+                         "phi_tpu_torch.vcfio.vcf2graph -v VCF -r REF.fa)")
     plog.log("main", f"Loaded graph from: {gfa_path}")
     timings["load_graph"] = time.time() - t0
 
@@ -190,6 +198,11 @@ def run_pipeline(gfa_path: str, reads_path: str | None, out_path: str | None,
                        meta={"k": opt.k, "w": opt.w})
             plog.log("ILP_function", f"Index saved to {opt.save_index}")
 
+    if opt.debug:
+        t1 = time.time()
+        _debug_sharing_histogram(graph, opt, device)
+        timings["debug_histogram"] = time.time() - t1
+
     # --- anchor tables (host, on the hit path) + the log contract ---
     t1 = time.time()
     if hits is not None:
@@ -228,6 +241,19 @@ def run_pipeline(gfa_path: str, reads_path: str | None, out_path: str | None,
              f"gap: {max(0.0, result.true_objective - result.dp_objective):.3f}")
     timings["solve"] = time.time() - t1
 
+    if opt.debug:
+        # the reference's -d detail: a model dump and the chosen path
+        t1 = time.time()
+        _debug_model_dump(graph, anchors, opt)
+        for (sh, sq, sp) in result.segments:
+            plog.raw(f"[D] segment lane={graph.walk_names[sh]} "
+                     f"walk_pos=[{sq},{sp}] vertices=["
+                     f"{graph.walk_mat[sh, sq]}..{graph.walk_mat[sh, sp]}]")
+        plog.raw(f"[D] matched distinct k-mers: {result.matched_distinct} / "
+                 f"{anchors.n_model_kmers}; weighted occurrence credit: "
+                 f"{result.matched_total:.1f}")
+        timings["debug_dump"] = time.time() - t1
+
     # --- report + emit ---
     recomb, segs = recombination_report(graph, result.vertices, result.vertex_hap)
     plog.raw(f"Recombination count: {recomb}")
@@ -247,6 +273,64 @@ def run_pipeline(gfa_path: str, reads_path: str | None, out_path: str | None,
         sequence=seq, decode=result, anchors=anchors,
         recombination_count=recomb, report_segments=segs,
         graph=graph, timings=timings, hits=hits)
+
+
+def _debug_sharing_histogram(graph: PangenomeGraph, opt: Options,
+                             device) -> None:
+    """The reference's debug k-mer sharing histogram: for each distinct
+    haplotype minimizer, in how many walks it occurs, printed as shared
+    fractions. The walks are sketched on `device` (the seq kernel), and
+    the distinct keys are counted there too: on the host, the per-walk
+    sorts took most of a -d run at 49 x 5 Mbp."""
+    sketches = sketch_haplotypes(graph, opt.k, opt.w, device=device)
+    parts = [torch.unique(torch.from_numpy(combine64(hi, lo).view(np.int64))
+                          .to(device)) for hi, lo, _ in sketches]
+    cnt = torch.unique(torch.cat(parts), return_counts=True)[1]
+    hist = torch.bincount(cnt, minlength=graph.num_walks + 1).cpu().numpy()
+    total = max(len(cnt), 1)
+    plog.raw("Shared fraction of unique kmers by haplotypes")
+    for i in range(1, graph.num_walks + 1):
+        plog.raw(f"[Haplotypes: {i}, fraction of unique shared kmers: "
+                 f"{hist[i] / total:.5f}]")
+
+
+_DUMP_MAX_STATES = 20_000
+_DUMP_MAX_ROWS = 50_000
+
+
+def _debug_model_dump(graph: PangenomeGraph, anchors: AnchorTables,
+                      opt: Options) -> None:
+    """The reference's -d model dump: the credit tables per lane, every
+    switch edge with its cost and every occurrence interval; a larger
+    model prints one summary line instead."""
+    anchors.materialize_device()
+    t = build_solver_tables(graph, anchors, opt.recombination,
+                            solver_layers(graph, opt.k))
+    H, P = t.state_vertex.shape
+    n_occ = len(anchors.occ_hap)
+    if (H * P > _DUMP_MAX_STATES or len(t.esrc_h) > _DUMP_MAX_ROWS
+            or n_occ > _DUMP_MAX_ROWS):
+        plog.raw(f"[D] model dump skipped (too large): {H}x{P} lane states, "
+                 f"{len(t.esrc_h)} switch edges, {n_occ} occurrences")
+        return
+    t = t.dense()
+    plog.raw(f"[D] objective: minimize {t.R:g}*switches - covered_credit "
+             f"+ {t.const:g}")
+    for h in range(H):
+        L = int(t.walk_len[h])
+        s_row = " ".join(f"{t.S[h, p]:g}" for p in range(L))
+        b_row = " ".join(f"{t.B[h, p]:g}" for p in range(L))
+        plog.raw(f"[D] lane {graph.walk_names[h]}: S=[{s_row}] B=[{b_row}]")
+    for i in range(len(t.esrc_h)):
+        h, p = int(t.esrc_h[i]), int(t.esrc_p[i])
+        plog.raw(f"[D] switch ({graph.walk_names[h]},{p}) -> "
+                 f"vertex {int(t.esrc_target[i])} cost {t.R:g}")
+    for i in range(n_occ):
+        plog.raw(f"[D] occ kmer={int(anchors.occ_kmer[i])} "
+                 f"lane={graph.walk_names[int(anchors.occ_hap[i])]} "
+                 f"span=[{int(anchors.occ_start[i])},"
+                 f"{int(anchors.occ_end[i])}) "
+                 f"weight={float(anchors.occ_weight[i]):g}")
 
 
 def _join_hits(graph, hap_codes, opt: Options, spectrum, device):
@@ -279,11 +363,29 @@ def _hydrate_tables(tables, anchors) -> None:
 
 def _solve_and_decode(graph, tables, anchors, opt: Options,
                       device) -> DecodeResult:
-    """One exact-credit fixpoint: the decoded path is the optimal relaxed
-    path and its value a valid bound."""
-    M, ends, sweeps, lb = solve_dp(tables, opt.max_sweeps, device)
+    """Exact mode (tables.n_layers set): one exact-credit fixpoint, whose
+    decoded path is the optimal relaxed path and its value a valid bound.
+    Bracket mode: the search and the optimistic fixpoints are both decoded
+    and the path with the lower exact objective is kept; the bound is the
+    optimistic fixpoint's."""
+    if tables.n_layers is not None:
+        M, ends, sweeps, lb = solve_dp(tables, opt.max_sweeps, device)
+        _hydrate_tables(tables, anchors)
+        return decode_path(graph, tables, anchors, M, ends, sweeps, lb)
     _hydrate_tables(tables, anchors)
-    return decode_path(graph, tables, anchors, M, ends, sweeps, lb)
+    tables = tables.dense()
+    (M, ends), (M_opt, ends_opt), sweeps, lb = solve_dp_both(
+        tables, opt.max_sweeps, device)
+    best = decode_path(graph, tables, anchors, M, ends, sweeps, lb)
+    try:
+        t_opt = dataclasses.replace(tables, S=tables.B, n_layers=None)
+        cand = decode_path(graph, t_opt, anchors, M_opt, ends_opt, sweeps,
+                           lb)
+        if cand.true_objective < best.true_objective:
+            best = cand
+    except RuntimeError:
+        pass  # the optimistic backtrace can fail on ties; the search path stands
+    return best
 
 
 def gap_tol(R: float) -> float:
@@ -310,7 +412,7 @@ def _solve_with_refinement(graph: PangenomeGraph, anchors: AnchorTables,
     bound (duplicate k-mer credit), Lagrangian reweighting rounds, then the
     exact small-case enumeration, projected subgradient ascent and
     branch-and-bound, each only while the gap stays above gap_tol."""
-    from phi_tpu_torch.solve.prep import _bucket_layers, solver_layers
+    from phi_tpu_torch.solve.prep import _bucket_layers
     layers = solver_layers(graph, opt.k)
     # shrink the W stack to the spans actually present (no compile cache to
     # keep stable, so every route shrinks, as phi_tpu does on its CPU
@@ -473,14 +575,13 @@ def _exact_small_case(graph: PangenomeGraph, anchors: AnchorTables,
     (exact objective, DecodeResult-shaped path) or None."""
     from phi_tpu_torch.solve.decode import result_from_segments
     from phi_tpu_torch.solve.exact import brute_force_optimum
-    from phi_tpu_torch.solve.prep import MAX_LAYERS, solver_layers
-    # the enumeration reads no straddle layers: cap them so a graph whose
-    # worst case needs more than MAX_LAYERS still gets its tables
-    tables = build_solver_tables(graph, anchors, opt.recombination,
-                                 min(solver_layers(graph, opt.k), MAX_LAYERS))
-    H, P = tables.state_vertex.shape
-    if H * P > _EXACT_MAX_STATES or len(tables.esrc_h) > _EXACT_MAX_EDGES:
+    from phi_tpu_torch.solve.prep import switch_sources_cached
+    H, P = graph.walk_mat.shape
+    if (H * P > _EXACT_MAX_STATES
+            or len(switch_sources_cached(graph)[0]) > _EXACT_MAX_EDGES):
         return None
+    tables = build_solver_tables(graph, anchors, opt.recombination,
+                                 solver_layers(graph, opt.k))
     try:
         exact, segs = brute_force_optimum(graph, tables, anchors)
     except RuntimeError:  # too many paths

@@ -82,7 +82,7 @@ def decode_path(graph: PangenomeGraph, t: SolverTables, anchors: AnchorTables,
             lane_cache[h] = got
         return got
 
-    L = t.n_layers
+    L = t.n_layers or 0   # bracket mode: no straddle layers
     if L > 0:
         # lazy straddle queries: occurrences per lane sorted by start (the
         # sort depends only on the layout, shared across refinement rounds)

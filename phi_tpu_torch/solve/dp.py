@@ -1,5 +1,5 @@
-"""The exact-credit DP solver on the device: the torch counterpart of the
-exact branch of `phi_tpu/solve/dp.py`.
+"""The DP solver on the device: the torch counterpart of
+`phi_tpu/solve/dp.py`, its exact-credit solve and its bracket solve.
 
 Each sweep:
   D[h,p]   = M[h,p] - B[h,p]                       (exit values)
@@ -9,7 +9,10 @@ Each sweep:
   M'[h,p]  = min(prefix-min of A shifted by L, A[p-j] - W[j] for j < L)
 The fixpoint loop stops as the reference's does: at least 2 sweeps, then
 when no entry drops by more than 1e-4, capped at max_sweeps. Shapes are the
-instance's own (no padding to buckets).
+instance's own (no padding to buckets). The bracket solve (solve_dp_both),
+for spans past MAX_LAYERS straddle layers, runs the sweep with no layers
+(L = 0) twice: once with the search charge S and once with the optimistic
+charge S := B, whose value is the bound.
 """
 
 from __future__ import annotations
@@ -107,6 +110,16 @@ def solve_exact(S, B, W, esrc_h, esrc_p, esrc_target, state_vertex,
     return M, _ends(M, B, walk_len), it
 
 
+def solve_plain(S, B, esrc_h, esrc_p, esrc_target, state_vertex, walk_len,
+                R: float, n_vtx: int, max_sweeps: int):
+    """The fixpoint without the straddle correction (the port of
+    `_solve_jit`): entry charge S, exit reward B, the stop rule of
+    solve_exact. Returns (M f32 [H, P], ends f32 [H], sweeps)."""
+    W = S.new_empty((0,) + tuple(S.shape))
+    return solve_exact(S, B, W, esrc_h, esrc_p, esrc_target, state_vertex,
+                       walk_len, R, n_vtx, max_sweeps)
+
+
 def esrc_ent(M, B, esrc_h, esrc_p, esrc_target, walk_len, n_vtx: int):
     """Per-vertex entry minima of the fixpoint (all decode needs densely)."""
     valid = esrc_p < walk_len[esrc_h]
@@ -152,6 +165,35 @@ def _warn_cap(n_sweeps: int, max_sweeps: int) -> None:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def solve_dp_both(t: SolverTables, max_sweeps: int, device):
+    """The bracket solve, for tables with n_layers None (spans past
+    MAX_LAYERS layers): the search fixpoint (S, B), whose entry charge
+    S[q] under-counts a visit's credit, so its value is a heuristic score,
+    and the optimistic fixpoint (B, B), whose charge B[q] over-counts it,
+    so its minimum is a valid lower bound. Both are decodable paths.
+    Returns ((DeviceSolution, ends), (DeviceSolution, ends) of the
+    optimistic one, the larger sweep count, the bound); LAST_TIMINGS is
+    cleared, since bracket mode has no per-phase split."""
+    device = torch.device(device)
+    LAST_TIMINGS.clear()
+    t = t.dense()
+    eh, ep, et, sv, wl = state.solver_static(t, device)
+    S, B = state.credit_tensors(t, device)
+    R = float(np.float32(t.R))
+    out, sweeps = [], 0
+    for charge in (S, B):
+        M, ends, n = solve_plain(charge, B, eh, ep, et, sv, wl, R, t.n_vtx,
+                                 max_sweeps)
+        ent = esrc_ent(M, B, eh, ep, et, wl, t.n_vtx).cpu().numpy()
+        out.append((DeviceSolution(M, B, eh, ep, wl, ent),
+                    ends.cpu().numpy()))
+        sweeps = max(sweeps, n)
+    _warn_cap(sweeps, max_sweeps)
+    ends_opt = out[1][1]
+    lb = float(t.const + ends_opt.min()) if len(ends_opt) else float(t.const)
+    return out[0], out[1], sweeps, lb
 
 
 def solve_dp(t: SolverTables, max_sweeps: int, device):

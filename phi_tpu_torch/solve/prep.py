@@ -4,8 +4,11 @@
 Encodes the reference's expanded graph as flat arrays over lane states
 (h, p): switch edges exist per graph edge (u, v) from every lane through u
 whose next vertex is not v, into every lane through v, at cost R; in-lane
-edges are consecutive walk positions (cost 0). The device builds S, B and
-the straddle layers W from the occurrence columns (solve.dp.build_sbw).
+edges are consecutive walk positions (cost 0). In exact mode the device
+builds S, B and the straddle layers W from the occurrence columns
+(solve.dp.build_sbw). Where spans need more than MAX_LAYERS layers (chains
+of empty nodes) the tables carry n_layers None and dense host S and B, and
+the solver runs the reference's bracket solve (solve.dp.solve_dp_both).
 """
 
 from __future__ import annotations
@@ -15,11 +18,16 @@ import dataclasses
 import numpy as np
 
 from phi_tpu_torch.graph.pangenome import PangenomeGraph, ragged_arange
-from phi_tpu_torch.anchors.join import AnchorTables
+from phi_tpu_torch.anchors.join import (AnchorTables, credit_arrays,
+                                        credit_arrays_from_occ)
 
 
 @dataclasses.dataclass
 class SolverTables:
+    # dense credit arrays, None in exact mode (the device builds its own);
+    # bracket mode carries them (dense())
+    S: np.ndarray | None      # float32 [H, P] entry charge (starts < p)
+    B: np.ndarray | None      # float32 [H, P] exit reward (ends <= p)
     esrc_h: np.ndarray        # int32 [n_src] lane of diverging source state
     esrc_p: np.ndarray        # int32 [n_src] position of source state
     esrc_target: np.ndarray   # int32 [n_src] target vertex of the graph edge
@@ -33,7 +41,8 @@ class SolverTables:
     # W[j, h, p] = weight of occurrences with start < p-j <= p < end. With
     # n_layers >= max_span - 1 the per-visit credit is exact, so the DP
     # value is the local-credit relaxation optimum (bound AND search).
-    n_layers: int
+    # None: the bracket solve (spans need more than MAX_LAYERS layers).
+    n_layers: int | None
     # host occurrence columns (weighted): decode's lazy straddle queries
     occ_hap: np.ndarray | None = None     # int32 [n_occ]
     occ_start: np.ndarray | None = None   # int32 [n_occ]
@@ -51,8 +60,19 @@ class SolverTables:
     def P(self) -> int:
         return self.state_vertex.shape[1]
 
+    def dense(self) -> "SolverTables":
+        """The tables with dense host S and B (self if they have them)."""
+        if self.S is not None:
+            return self
+        S, B = credit_arrays_from_occ(self.occ_hap, self.occ_start,
+                                      self.occ_end, self.occ_weight,
+                                      self.H, self.P)
+        return dataclasses.replace(self, S=S, B=B)
+
     def S_row(self, h: int) -> np.ndarray:
         """One lane's dense S row (entry charge, starts < p)."""
+        if self.S is not None:
+            return self.S[h]
         cache = getattr(self, "_s_rows", None)
         if cache is None:
             cache = {}
@@ -123,8 +143,9 @@ def _bucket_layers(n: int) -> int:
     return b
 
 
-# Above this many correction layers the reference falls back to its bracket
-# DP; spans this long only arise from chains of zero-length nodes.
+# Above this many correction layers the tables take bracket mode (the W
+# stack would be L * H * P floats); spans this long only arise from chains
+# of zero-length nodes.
 MAX_LAYERS = 64
 
 
@@ -158,17 +179,22 @@ def solver_layers(graph: PangenomeGraph, k: int) -> int:
 def build_solver_tables(graph: PangenomeGraph, anchors: AnchorTables,
                         R: float, n_layers: int | None = None,
                         const_override: float | None = None) -> SolverTables:
-    """n_layers: W-layer count (default: from the anchors present).
+    """n_layers: W-layer count (default: from the anchors present); above
+    MAX_LAYERS the tables take bracket mode (n_layers None, dense S and B,
+    which device anchors get from dense() once materialized).
     const_override: explicit sum_i mu_i (branch-and-bound zeroes single
     occurrence weights, which must not change the per-k-mer constant)."""
     esrc_h, esrc_p, esrc_target, esrc_edge = switch_sources_cached(graph)
     dev = anchors.device_occ
+    S = B = None
     if anchors.occ_kmer is None:
         # device anchors before materialize, weights all 1.0: the constant
         # is the number of model k-mers
         const = float(anchors.n_model_kmers)
         if n_layers is None:
             n_layers = _bucket_layers(dev.max_span - 1)
+        if n_layers > MAX_LAYERS:
+            n_layers = None
     else:
         if const_override is not None:
             const = float(const_override)
@@ -187,13 +213,11 @@ def build_solver_tables(graph: PangenomeGraph, anchors: AnchorTables,
             max_span = int((anchors.occ_end - anchors.occ_start).max()) \
                 if len(anchors.occ_hap) else 1
             n_layers = _bucket_layers(max_span - 1)
-    if n_layers > MAX_LAYERS:
-        raise NotImplementedError(
-            f"anchor spans need {n_layers} > {MAX_LAYERS} straddle layers: "
-            "the bracket solve is not yet ported to phi_tpu_torch "
-            "(ROADMAP.md queue 1, item 6)")
+        if n_layers > MAX_LAYERS:
+            n_layers = None
+            S, B = credit_arrays(graph, anchors)
     return SolverTables(
-        esrc_h=esrc_h, esrc_p=esrc_p, esrc_target=esrc_target,
+        S=S, B=B, esrc_h=esrc_h, esrc_p=esrc_p, esrc_target=esrc_target,
         esrc_edge=esrc_edge, state_vertex=graph.walk_mat,
         walk_len=graph.walk_len, R=float(R), const=const, n_vtx=graph.n_vtx,
         n_layers=n_layers, occ_hap=anchors.occ_hap,

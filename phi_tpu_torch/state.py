@@ -81,3 +81,8 @@ def solver_static(t, device):
             _t(t.esrc_target, torch.int64, device),
             _t(t.state_vertex, torch.int64, device),
             _t(t.walk_len, torch.int64, device))
+
+
+def credit_tensors(t, device):
+    """The dense host S and B of a bracket-mode SolverTables (f32 [H, P])."""
+    return _t(t.S, torch.float32, device), _t(t.B, torch.float32, device)

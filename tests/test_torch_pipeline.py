@@ -232,18 +232,20 @@ def test_cli_matches_jax_cli(tmp_path):
 
 
 def test_port_run_loads_no_jax(tmp_path):
-    """conftest imports jax into this process, so the runs (the default k,
-    the wide k = 35, --save-index and --load-index) are a child, which then
-    holds neither jax nor any module of phi_tpu."""
+    """conftest imports jax into this process, so the runs (the default k
+    with -d 1, the wide k = 35, --save-index and --load-index, after
+    importing the frontier runner and the VCF converter) are a child, which
+    then holds neither jax nor any module of phi_tpu."""
     gfa_path, reads_path = _mosaic(tmp_path)
     idx = str(tmp_path / "index.npz")
     code = ("import sys\n"
             "import phi_tpu_torch.eval, phi_tpu_torch.trace\n"
+            "import phi_tpu_torch.eval.frontier, phi_tpu_torch.vcfio.vcf2graph\n"
             "from phi_tpu_torch.cli import main\n"
             f"g = ['-g', {gfa_path!r}, '-o', {str(tmp_path / 'out.fa')!r}, "
             "'--device', 'cpu']\n"
             f"args = g + ['-r', {reads_path!r}]\n"
-            "rc = (main(args) + main(args + ['-k', '35'])\n"
+            "rc = (main(args + ['-d', '1']) + main(args + ['-k', '35'])\n"
             f"      + main(args + ['--save-index', {idx!r}])\n"
             f"      + main(g + ['--load-index', {idx!r}, '-R', '2']))\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -268,11 +270,15 @@ def test_cli_cuda_without_gpu_exits_1(tmp_path, capsys):
     assert not (tmp_path / "out.fa").exists()
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--race", "off"],
-                                  ["-d", "1"]])
+@pytest.mark.parametrize("flag", [["--mesh", "2"],
+                                  ["--mesh", "2", "--race", "off"],
+                                  ["--mesh", "4", "-d", "1"]])
 def test_cli_rejects_unported_flags(tmp_path, capsys, flag):
+    """--mesh is the one flag not ported; -d and --race are, and do not
+    lift its refusal."""
     from phi_tpu_torch.cli import main
     rc = main(["-g", "g.gfa", "-r", "r.fa", "-o", str(tmp_path / "o.fa"),
                "--device", "cpu"] + flag)
     assert rc == 1
-    assert "not yet ported to phi_tpu_torch" in capsys.readouterr().err
+    assert "[E::main] --mesh is not yet ported to phi_tpu_torch" in \
+        capsys.readouterr().err

@@ -24,9 +24,10 @@ def test_smoke_imports_only_torch_and_the_port():
             roots.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             roots.add(node.module.split(".")[0])
-    allowed = {"__future__", "ctypes", "json", "os", "re", "subprocess",
-               "sys", "time", "numpy", "torch", "phi_tpu_torch"}
+    allowed = set(sys.stdlib_module_names) | {"numpy", "torch",
+                                              "phi_tpu_torch"}
     assert roots <= allowed, roots - allowed
+    assert {"phi_tpu", "jax"}.isdisjoint(roots)
 
 
 def test_smoke_without_a_card_exits_nonzero():
