@@ -71,11 +71,24 @@ Phases, in order; any failure exits non-zero:
      5% indels, an overlapping pair every 1,000 sites, 24 phased diploid
      samples), converted by `python -m phi_tpu_torch.vcfio.vcf2graph`
      into 49 walks, and 1x reads of a 2-switch mosaic of two sample
-     haplotypes through the rows3 route at -k 31 -w 25 -R 100; certified.
-Phases 4-12 set every kernel's launch count to 0 just before each run and
-read them just after. The second-to-last line is the kernels JSON, the
-last the device JSON. Instances are generated from a seed into
-phi_tpu_torch/_build/scale/.
+     haplotypes through the rows3 route at -k 31 -w 25 -R 100; certified;
+ 13. the eval runners on the phase-4 instance at -k 31 -w 25 -R 100, each
+     run's wall, timings, launches and peak device memory logged: (a)
+     progressive_subsets over 3, 7, 13, 25 and 49 walks (every row
+     certified and through rows3, the 49 row's FASTA == phase 4's); (b)
+     run_matrix over the reads and a 0.1x downsample_fastq titration, 3
+     runs a cell, both CSVs (the 1x edit distance == phase 4's); (c)
+     leave_one_out of walks 0 and 24 (rows3, and one seq launch per kept
+     walk for the best-hap baseline); (d) the greedy and best-hap
+     baselines; (e) `python -m phi_tpu_torch.eval.scale --haps 49
+     --length 5000000 --coverage 1 --runs 3` and (f) `python -m
+     phi_tpu_torch.eval.throughput --mbases 64 --repeats 5` as child
+     processes (exit 0; the join ran rows and found hits).
+Phases 4-13 set every kernel's launch count to 0 just before each run and
+read them just after; the kernels JSON adds phase 13's launches to those of
+the phase that first runs each kernel. The second-to-last line is the
+kernels JSON, the last the device JSON. Instances are generated from a
+seed into phi_tpu_torch/_build/scale/.
 """
 
 from __future__ import annotations
@@ -369,22 +382,32 @@ def bound_ms(name: str, ins, outs, w: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def zero_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from phi_tpu_torch.sketch import kernels as tk
+    for n in KERNELS:
+        getattr(tk, f"sketch_{n}").launches = 0
+
+
+def read_launches() -> dict:
+    """Every kernel wrapper's launch count, by name."""
+    from phi_tpu_torch.sketch import kernels as tk
+    return {n: getattr(tk, f"sketch_{n}").launches for n in KERNELS}
+
+
 def run_counted(paths, out, argv, dev):
     """One run of the pipeline on the card with every kernel's launch count
     set to 0 just before it; returns (result, wall s, launches by name,
     peak device memory B)."""
     import torch
-    from phi_tpu_torch.sketch import kernels as tk
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for n in KERNELS:
-        getattr(tk, f"sketch_{n}").launches = 0
+    zero_launches()
     t0 = time.time()
     r = run_port(paths, out, argv, dev)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {n: getattr(tk, f"sketch_{n}").launches for n in KERNELS}
-    return r, wall, launches, torch.cuda.max_memory_allocated()
+    return r, wall, read_launches(), torch.cuda.max_memory_allocated()
 
 
 def report(label: str, r, wall: float, launches, peak: int, truth: str,
@@ -622,19 +645,100 @@ def cli_counted(argv):
     launches by name, peak device memory B, stderr)."""
     import torch
     from phi_tpu_torch import cli, pipeline
-    from phi_tpu_torch.sketch import kernels as tk
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for n in KERNELS:
-        getattr(tk, f"sketch_{n}").launches = 0
+    zero_launches()
     t0 = time.time()
     with stderr_tee() as err, spy(pipeline, "run_pipeline") as runs:
         rc = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {n: getattr(tk, f"sketch_{n}").launches for n in KERNELS}
-    return (rc, runs[0] if runs else None, wall, launches,
+    return (rc, runs[0] if runs else None, wall, read_launches(),
             torch.cuda.max_memory_allocated(), err.getvalue())
+
+
+@contextlib.contextmanager
+def per_run():
+    """Wrap pipeline.run_pipeline for the block (the eval runners call it
+    through the module): every call still runs, and its graph file, wall,
+    launches by kernel (the counts after it minus those before it), peak
+    device memory (reset just before it; the peak before the reset is kept
+    as peak_before) and result are appended to the list the block gets."""
+    import torch
+    from phi_tpu_torch import pipeline
+    real, seen = pipeline.run_pipeline, []
+
+    def wrapped(gfa_path, *args, **kwargs):
+        torch.cuda.synchronize()
+        peak_before = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = read_launches()
+        t0 = time.time()
+        r = real(gfa_path, *args, **kwargs)
+        torch.cuda.synchronize()
+        seen.append({"gfa": gfa_path, "wall": time.time() - t0,
+                     "launches": {n: c - before[n]
+                                  for n, c in read_launches().items()},
+                     "peak": torch.cuda.max_memory_allocated(),
+                     "peak_before": peak_before, "result": r})
+        return r
+
+    pipeline.run_pipeline = wrapped
+    try:
+        yield seen
+    finally:
+        pipeline.run_pipeline = real
+
+
+def log_runs(label: str, runs) -> None:
+    """One line per pipeline run of per_run: wall, timings, launches and
+    peak device memory, with the card."""
+    for i, run in enumerate(runs):
+        r = run["result"]
+        log(f"{label} run {i} ({os.path.basename(run['gfa'])}, "
+            f"{r.graph.num_walks} walks): wall {run['wall']:.3f} s; peak "
+            f"device memory {run['peak']} B; launches "
+            f"{json.dumps(run['launches'])} ({CARD}); timings "
+            + json.dumps({k: round(v, 4) for k, v in r.timings.items()}))
+
+
+# Runs a module as `python -m` does (sys.argv[1] is the module, the rest its
+# arguments), with every kernel's launch count at 0, and writes its launches
+# and peak device memory to stderr as one "[probe] {json}" line at exit.
+PROBE = """
+import json, runpy, sys, torch
+from phi_tpu_torch.sketch import kernels as tk
+names = %r
+for n in names:
+    getattr(tk, "sketch_" + n).launches = 0
+sys.argv = sys.argv[1:]
+rc = 0
+try:
+    runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    rc = e.code or 0
+torch.cuda.synchronize()
+sys.stderr.write("[probe] " + json.dumps({
+    "launches": {n: getattr(tk, "sketch_" + n).launches for n in names},
+    "peak": torch.cuda.max_memory_allocated()}) + "\\n")
+sys.exit(rc)
+""" % (KERNELS,)
+
+
+def module_counted(module: str, args: list[str], timeout: int):
+    """`python -m module args` as a child process through PROBE; returns
+    (exit code, wall s, stdout, its launches by kernel, its peak device
+    memory B, stderr). The launches and peak are None if the child did not
+    reach its end."""
+    t0 = time.time()
+    res = subprocess.run([sys.executable, "-c", PROBE, module, *args],
+                         capture_output=True, text=True, cwd=ROOT,
+                         timeout=timeout)
+    wall = time.time() - t0
+    probe = [ln for ln in res.stderr.splitlines() if ln.startswith("[probe] ")]
+    got = json.loads(probe[-1][len("[probe] "):]) if probe else {}
+    return (res.returncode, wall, res.stdout, got.get("launches"),
+            got.get("peak"), res.stderr)
 
 
 def chain_copy(r, dst: str, n: int = 80):
@@ -743,6 +847,144 @@ def realize(ref: str, records, hap: int) -> str:
         cur = p + len(ra)
     parts.append(ref[cur:])
     return "".join(parts)
+
+
+def phase13(big, dev, main_fa: str, main_edit: int, g49, launches) -> int:
+    """Phase 13: the eval runners on the phase-4 instance (paths `big`, its
+    graph g49, phase 4's warm FASTA and edit distance), on `dev`; adds their
+    launches to `launches`. Returns 0, or 1 after a failure line."""
+    import torch
+    from phi_tpu_torch.config import Options
+    from phi_tpu_torch.eval import baselines, batch, crossval, scale
+    from phi_tpu_torch.pipeline import gap_tol
+    t13 = time.time()
+    opt = Options(k=31, w=25, recombination=100.0)
+    bdir = os.path.dirname(big["gfa"])
+
+    def runner(label, fn):
+        """fn() with every launch count at 0 just before it and its
+        pipeline runs logged; returns (fn's result, its runs, launches)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.time()
+        with per_run() as runs:
+            out = fn()
+        torch.cuda.synchronize()
+        wall, n = time.time() - t0, read_launches()
+        for kern in KERNELS:
+            launches[kern] += n[kern]
+        peak = max([torch.cuda.max_memory_allocated()]
+                   + [max(r["peak"], r["peak_before"]) for r in runs])
+        log(f"{label}: wall {wall:.3f} s, {len(runs)} pipeline runs, "
+            f"launches {json.dumps(n)}, peak device memory {peak} B "
+            f"({CARD})")
+        log_runs(label, runs)
+        return out, runs, n
+
+    # 13a: the increasing.csv axis, chop_graph.sh style
+    counts = [3, 7, 13, 25, 49]
+    rows, runs, _ = runner("phase 13a progressive_subsets", lambda: (
+        scale.progressive_subsets(
+            big["gfa"], big["reads"], big["truth"], counts, opt=opt,
+            out_csv=os.path.join(bdir, "increasing.csv"), target_runs=1,
+            device=dev)))
+    for row in rows:
+        log(f"phase 13a row: {json.dumps(row)}")
+    with open(os.path.join(bdir, "increasing.csv")) as f:
+        log("phase 13a increasing.csv:\n" + f.read().rstrip())
+    if [row["n_haps"] for row in rows] != counts or len(runs) != len(counts):
+        return fail(f"phase 13a: rows {[row['n_haps'] for row in rows]}, "
+                    f"{len(runs)} runs")
+    for row, run in zip(rows, runs):
+        if row["gap"] > gap_tol(100.0):
+            return fail(f"phase 13a: the {row['n_haps']}-haplotype row is "
+                        f"not certified (gap {row['gap']})")
+        if run["launches"]["rows3"] <= 0 or not on_cuda(run["result"]):
+            return fail(f"phase 13a: the {row['n_haps']}-haplotype run "
+                        f"launched no rows3 kernel or left the card")
+    if not same_file(os.path.join(bdir, "inferred_49.fa"), main_fa):
+        return fail("phase 13a: the 49-haplotype row's FASTA differs from "
+                    "phase 4 (warm)")
+    log("phase 13a: every row certified; the 49-haplotype FASTA == phase 4 "
+        "warm FASTA")
+
+    # 13b: the reads x coverage matrix, the reads and a 0.1x titration
+    tenth = os.path.join(bdir, "reads_0.1.fq.gz")
+    kept = batch.downsample_fastq(big["reads"], tenth, 0.1, seed=11)
+    log(f"phase 13b: downsample_fastq 0.1: {kept} reads")
+    cells = [("sim", "1x", big["reads"], big["truth"]),
+             ("sim", "0.1x", tenth, big["truth"])]
+    matrix_csv = os.path.join(bdir, "matrix.csv")
+    res, runs, _ = runner("phase 13b run_matrix", lambda: batch.run_matrix(
+        big["gfa"], cells, opt, out_csv=matrix_csv, target_runs=3,
+        device=dev))
+    for path in (matrix_csv, matrix_csv + ".stats.csv"):
+        with open(path) as f:
+            log(f"phase 13b {os.path.basename(path)}:\n" + f.read().rstrip())
+    if any(run["launches"]["rows3"] <= 0 for run in runs):
+        return fail("phase 13b: a run launched no rows3 kernel")
+    if res[0].edit_distance != main_edit:
+        return fail(f"phase 13b: the 1x cell's edit distance "
+                    f"{res[0].edit_distance} differs from phase 4's "
+                    f"{main_edit}")
+
+    # 13c: leave-one-out on two walks
+    targets = [g49.walk_names[0], g49.walk_names[24]]
+    rows, runs, n = runner("phase 13c leave_one_out", lambda: (
+        crossval.leave_one_out(big["gfa"], 1.0, targets=targets, opt=opt,
+                               device=dev)))
+    for row in rows:
+        log(f"phase 13c row: {json.dumps(row)}; edit <= best_hap_edit: "
+            f"{row['edit'] <= row['best_hap_edit']}")
+    if len(rows) != 2 or any(run["launches"]["rows3"] <= 0 for run in runs):
+        return fail(f"phase 13c: {len(rows)} rows, launches "
+                    f"{[run['launches'] for run in runs]}")
+    if n["seq"] != 2 * (g49.num_walks - 1):
+        return fail(f"phase 13c: {n['seq']} seq launches for 2 folds of "
+                    f"{g49.num_walks - 1} kept walks")
+
+    # 13d: the two baselines on the phase-4 files
+    files = (big["gfa"], big["reads"], big["truth"])
+    for label, fn, kern in (
+            ("greedy", baselines.run_greedy_baseline, "rows3"),
+            ("best-hap", baselines.run_best_hap_baseline, "seq")):
+        rec, _, n = runner(f"phase 13d {label} baseline",
+                           lambda fn=fn: fn(*files, device=dev))
+        log(f"phase 13d {label} baseline: {json.dumps(rec)}")
+        if n[kern] <= 0:
+            return fail(f"phase 13d: the {label} baseline launched no "
+                        f"{kern} kernel")
+
+    # 13e and 13f: the scale and throughput CLIs as child processes
+    for label, module, args in (
+            ("13e", "phi_tpu_torch.eval.scale",
+             ["--haps", "49", "--length", "5000000", "--coverage", "1",
+              "--runs", "3"]),
+            ("13f", "phi_tpu_torch.eval.throughput",
+             ["--mbases", "64", "--repeats", "5"])):
+        rc, wall, out, n, peak, err = module_counted(module, args, 600)
+        lines = [json.loads(ln) for ln in out.splitlines()
+                 if ln.startswith("{")]
+        for line in lines:
+            log(f"phase {label} {module}: {json.dumps(line)}")
+        log(f"phase {label}: exit {rc}, wall {wall:.3f} s (the child "
+            f"process), launches {json.dumps(n)}, peak device memory {peak} "
+            f"B ({CARD})")
+        if rc != 0 or not lines or n is None:
+            return fail(f"phase {label}: {module} exited {rc}: {err[-2000:]}")
+        for kern in KERNELS:
+            launches[kern] += n[kern]
+        if label == "13e" and (lines[0]["gap"] > gap_tol(100.0)
+                               or n["rows3"] <= 0):
+            return fail("phase 13e: not certified, or no rows3 launch")
+        if label == "13f":
+            join = [line for line in lines if line["metric"] == "join"]
+            if n["rows"] <= 0 or not join or join[0]["hits"] <= 0:
+                return fail("phase 13f: the join ran no rows kernel or found "
+                            "no hits")
+    log(f"phase 13: {time.time() - t13:.3f} s in all ({CARD})")
+    return 0
 
 
 def main() -> int:
@@ -897,6 +1139,7 @@ def main() -> int:
         f"{rc.decode.true_objective:.3f})")
 
     # --- phases 4 and 5: the main path at size, k = 31 and wide k = 35 ---
+    from phi_tpu_torch.eval import edit_stats
     t0 = time.time()
     big = build_instance(49, 5_000_000, coverage=1.0)
     log(f"instance 49 x 5 Mbp, 1x: ready in {time.time() - t0:.1f} s "
@@ -918,6 +1161,8 @@ def main() -> int:
                 return fail("anchor or solver tensors are not on cuda")
             if phase == 5 and not certified:
                 return fail("the wide-k run is not certified")
+            if phase == 4 and run == "warm":
+                main_edit = edit_stats(r.sequence, truth).edit_distance
         for args in instance_batches(r, k, 25, dev, False):
             check(kern, args, k, 25, tk.block_cap(25))
         log(f"{kern} equal to twin on the 49 x 5 Mbp instance's first 2 "
@@ -995,8 +1240,7 @@ def main() -> int:
     spectrum, hits, _ = load_index(idx)
     hap0 = save_run.graph.walk_seq_codes(0)
     with_n = seq_with_n(hap0, np.random.default_rng(9))
-    for n in KERNELS:
-        getattr(tk, f"sketch_{n}").launches = 0
+    zero_launches()
     t0 = time.time()
     s_hi, _, s_pos = tk.sketch_sequence(with_n, 31, 25, device=dev)
     got = tk.join_sequence(hap0, 31, 25, *spectrum, device=dev)
@@ -1173,6 +1417,10 @@ def main() -> int:
                     f"{json.dumps(n)}")
     if not certified:
         return fail("phase 12: the VCF run is not certified")
+
+    # --- phase 13: the eval runners at size, on the phase-4 instance ---
+    if phase13(big, dev, main_fa, main_edit, save_run.graph, launches):
+        return 1
 
     replaces = {"rows3": 1000, "rows3w": 1340, "rows2": 688, "rows": 237,
                 "seq": 57}

@@ -53,7 +53,8 @@ from phi_tpu_torch.io.reads import load_read_batch
 from phi_tpu_torch.sketch.encode import combine64
 from phi_tpu_torch.sketch.kernels import HALO_PAD, NARROW_MAX_K, join_many
 from phi_tpu_torch.sketch.minimizer import host_join_many, sketch_join_walks
-from phi_tpu_torch.solve.decode import DecodeResult, decode_path
+from phi_tpu_torch.solve.decode import (DecodeResult, covered_occurrences,
+                                       decode_path)
 from phi_tpu_torch.solve.dp import LAST_TIMINGS, solve_dp, solve_dp_both
 from phi_tpu_torch.solve.prep import build_solver_tables, solver_layers
 
@@ -398,14 +399,6 @@ def gap_tol(R: float) -> float:
     return 0.5 * min(1.0, R) if R > 0 else 0.0
 
 
-def _covered(anchors, segments) -> np.ndarray:
-    covered = np.zeros(len(anchors.occ_hap), bool)
-    for (sh, sq, sp) in segments:
-        covered |= ((anchors.occ_hap == sh) & (anchors.occ_start >= sq)
-                    & (anchors.occ_end <= sp))
-    return covered
-
-
 def _solve_with_refinement(graph: PangenomeGraph, anchors: AnchorTables,
                            opt: Options, device) -> DecodeResult:
     """One DP solve; if the decoded path's exact objective is above the DP
@@ -443,9 +436,8 @@ def _solve_with_refinement(graph: PangenomeGraph, anchors: AnchorTables,
     while it + 1 < rounds:
         it += 1
         # covered-occurrence multiplicity per k-mer on the relaxation path
-        mult = np.bincount(anchors.occ_kmer[_covered(anchors,
-                                                     relax_path.segments)],
-                           minlength=n_kmer_ids)
+        covered = covered_occurrences(anchors, relax_path.segments)
+        mult = np.bincount(anchors.occ_kmer[covered], minlength=n_kmer_ids)
         dup = mult >= 2
         release = (mult == 0) & (mu < 1.0)
         if not dup.any() and not release.any():
@@ -546,8 +538,8 @@ def _subgradient_phase(graph: PangenomeGraph, anchors, opt: Options,
             best = cand
         if best.true_objective - best_bound <= tol:
             break
-        mult = np.bincount(anchors.occ_kmer[_covered(anchors, cand.segments)],
-                           minlength=n_kmer_ids)
+        covered = covered_occurrences(anchors, cand.segments)
+        mult = np.bincount(anchors.occ_kmer[covered], minlength=n_kmer_ids)
         g = 1.0 - mult.astype(np.float64)
         gnorm = float((g * g).sum())
         if gnorm <= 0:

@@ -37,13 +37,7 @@ import time
 
 import numpy as np
 
-
-def _covered_occurrences(anchors, segments) -> np.ndarray:
-    covered = np.zeros(len(anchors.occ_hap), bool)
-    for (sh, sq, sp) in segments:
-        covered |= ((anchors.occ_hap == sh) & (anchors.occ_start >= sq)
-                    & (anchors.occ_end <= sp))
-    return covered
+from phi_tpu_torch.solve.decode import covered_occurrences
 
 
 def branch_and_bound(graph, anchors, opt, tol: float,
@@ -113,7 +107,7 @@ def branch_and_bound(graph, anchors, opt, tol: float,
                 best = res
             if node_bound >= ub - tol:
                 break
-            covered = _covered_occurrences(anchors, res.segments) \
+            covered = covered_occurrences(anchors, res.segments) \
                 & ~zmask & (w > 0)
             mult = np.bincount(anchors.occ_kmer[covered], minlength=kmax)
             dups = np.flatnonzero(mult >= 2)

@@ -59,6 +59,11 @@ def decode_path(graph: PangenomeGraph, t: SolverTables, anchors: AnchorTables,
     else:
         order = np.zeros(0, np.int64)
         tgt_sorted = np.zeros(0, np.int32)
+    # the switch sources of vertex v are order[tgt_off[v]:tgt_off[v + 1]];
+    # found once for every vertex, as a search with a Python int needle
+    # converts the whole int32 array on each call
+    tgt_off = np.searchsorted(tgt_sorted,
+                              np.arange(graph.n_vtx + 1, dtype=np.int32))
 
     # lane arrays (A, running minimum, rightmost argmin, start entry) are
     # built lazily: the backtrace touches n_switches + 1 lanes
@@ -146,9 +151,7 @@ def decode_path(graph: PangenomeGraph, t: SolverTables, anchors: AnchorTables,
         if q == 0 and entry_val >= -_EPS and start_entry_h >= -_EPS:
             break  # lane start
         # switch: find an achieving diverging source state for vertex v
-        lo = np.searchsorted(tgt_sorted, v, side="left")
-        hi_i = np.searchsorted(tgt_sorted, v, side="right")
-        cand = order[lo:hi_i]
+        cand = order[tgt_off[v]:tgt_off[v + 1]]
         vals = M.sv_at(cand)
         j = int(np.argmin(vals))
         if not vals[j] <= ent[v] + _EPS:
@@ -217,15 +220,36 @@ def _verify_edges(graph: PangenomeGraph, vertices: np.ndarray) -> None:
             f"decoded path uses non-edge {vertices[i]}->{vertices[i + 1]}")
 
 
+def covered_occurrences(anchors: AnchorTables,
+                        segments: list[tuple[int, int, int]]) -> np.ndarray:
+    """Mask of the occurrences fully inside an in-lane segment (sh, sq, sp):
+    occ_hap == sh, occ_start >= sq and occ_end <= sp for some segment. The
+    segments sorted by (lane, start) and the running maximum of their ends
+    within a lane answer every occurrence with one binary search, so a
+    path of many switches (a low recombination penalty) costs one pass,
+    not one pass per segment."""
+    n = len(anchors.occ_hap)
+    if n == 0 or not segments:
+        return np.zeros(n, bool)
+    seg = np.asarray(segments, np.int64)
+    hap = anchors.occ_hap.astype(np.int64)
+    # key = lane * span + position orders by lane, then position
+    span = int(max(seg[:, 1:].max(), anchors.occ_end.max())) + 1
+    order = np.argsort(seg[:, 0] * span + seg[:, 1], kind="stable")
+    key = seg[order, 0] * span + seg[order, 1]
+    reach = np.maximum.accumulate(seg[order, 0] * span + seg[order, 2])
+    i = np.searchsorted(key, hap * span + anchors.occ_start, side="right") - 1
+    ic = np.maximum(i, 0)
+    return ((i >= 0) & (key[ic] // span == hap)
+            & (reach[ic] >= hap * span + anchors.occ_end))
+
+
 def _score_matches(anchors: AnchorTables,
                    segments: list[tuple[int, int, int]]) -> tuple[int, float]:
     """Occurrences fully contained in an in-lane segment: distinct k-mers
     and weighted total."""
     if len(anchors.occ_hap) == 0:
         return 0, 0.0
-    covered = np.zeros(len(anchors.occ_hap), bool)
-    for (sh, sq, sp) in segments:
-        covered |= ((anchors.occ_hap == sh) & (anchors.occ_start >= sq)
-                    & (anchors.occ_end <= sp))
+    covered = covered_occurrences(anchors, segments)
     return (len(np.unique(anchors.occ_kmer[covered])),
             float(anchors.occ_weight[covered].sum()))

@@ -188,7 +188,11 @@ def test_port_imports_nothing_of_phi_tpu_or_jax():
     rel = {os.path.relpath(p, REPO) for p in sources}
     assert {"phi_tpu_torch/vcfio/vcf2graph.py", "phi_tpu_torch/vcfio/__init__.py",
             "phi_tpu_torch/eval/frontier.py",
-            "phi_tpu_torch/sketch/encode.py"} <= rel
+            "phi_tpu_torch/sketch/encode.py", "phi_tpu_torch/eval/stats.py",
+            "phi_tpu_torch/eval/scrape.py", "phi_tpu_torch/eval/batch.py",
+            "phi_tpu_torch/io/subset.py", "phi_tpu_torch/eval/baselines.py",
+            "phi_tpu_torch/eval/crossval.py", "phi_tpu_torch/eval/scale.py",
+            "phi_tpu_torch/eval/throughput.py"} <= rel
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -234,13 +234,16 @@ def test_cli_matches_jax_cli(tmp_path):
 def test_port_run_loads_no_jax(tmp_path):
     """conftest imports jax into this process, so the runs (the default k
     with -d 1, the wide k = 35, --save-index and --load-index, after
-    importing the frontier runner and the VCF converter) are a child, which
+    importing the eval runners and the VCF converter) are a child, which
     then holds neither jax nor any module of phi_tpu."""
     gfa_path, reads_path = _mosaic(tmp_path)
     idx = str(tmp_path / "index.npz")
     code = ("import sys\n"
             "import phi_tpu_torch.eval, phi_tpu_torch.trace\n"
             "import phi_tpu_torch.eval.frontier, phi_tpu_torch.vcfio.vcf2graph\n"
+            "import phi_tpu_torch.eval.batch, phi_tpu_torch.eval.baselines\n"
+            "import phi_tpu_torch.eval.crossval, phi_tpu_torch.eval.scale\n"
+            "import phi_tpu_torch.eval.throughput, phi_tpu_torch.io.subset\n"
             "from phi_tpu_torch.cli import main\n"
             f"g = ['-g', {gfa_path!r}, '-o', {str(tmp_path / 'out.fa')!r}, "
             "'--device', 'cpu']\n"

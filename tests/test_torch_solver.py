@@ -141,3 +141,34 @@ def test_exact_solve_fractional_weights(instance, monkeypatch):
     assert got.true_objective == pytest.approx(want.true_objective, abs=1e-3)
     assert got.dp_objective == pytest.approx(want.dp_objective, abs=1e-3)
     assert got.solver_device == "cpu"
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_covered_occurrences_matches_segment_loop(seed):
+    """The port's one-pass covered mask against the per-segment loop of
+    phi_tpu's `_score_matches` (and the port's loop it replaced), on random
+    occurrences and paths: several segments per lane, overlapping and
+    empty-lane cases, a path of one segment and of thousands (a low-R
+    path)."""
+    from types import SimpleNamespace
+
+    from phi_tpu.solve.decode import _score_matches as jax_score
+    from phi_tpu_torch.solve.decode import _score_matches, covered_occurrences
+    rng = np.random.default_rng(seed)
+    H, P, n = 7, 400, 5000
+    start = rng.integers(0, P - 1, n).astype(np.int32)
+    occ = SimpleNamespace(
+        occ_hap=rng.integers(0, H, n).astype(np.int32), occ_start=start,
+        occ_end=np.minimum(start + rng.integers(1, 30, n), P).astype(np.int32),
+        occ_kmer=rng.integers(0, 900, n).astype(np.int32),
+        occ_weight=rng.random(n).astype(np.float32))
+    n_seg = [1, 3, 40, 400, 3000, 0][seed]
+    sq = rng.integers(0, P, n_seg)
+    segs = [(int(h), int(q), int(min(P - 1, q + rng.integers(0, 60))))
+            for h, q in zip(rng.integers(0, H - 1, n_seg), sq)]
+    want = np.zeros(n, bool)
+    for (sh, q, p) in segs:
+        want |= (occ.occ_hap == sh) & (occ.occ_start >= q) & (occ.occ_end <= p)
+    got = covered_occurrences(occ, segs)
+    np.testing.assert_array_equal(got, want)
+    assert _score_matches(occ, segs) == jax_score(None, occ, segs)
