@@ -83,10 +83,29 @@ Phases, in order; any failure exits non-zero:
      baselines; (e) `python -m phi_tpu_torch.eval.scale --haps 49
      --length 5000000 --coverage 1 --runs 3` and (f) `python -m
      phi_tpu_torch.eval.throughput --mbases 64 --repeats 5` as child
-     processes (exit 0; the join ran rows and found hits).
-Phases 4-13 set every kernel's launch count to 0 just before each run and
-read them just after; the kernels JSON adds phase 13's launches to those of
-the phase that first runs each kernel. The second-to-last line is the
+     processes (exit 0; the join ran rows and found hits);
+ 14. the mesh and the device read sketch on the one card: (a) the read
+     spectrum of the phase-4 reads (5 Mbp) and of the phase-6 reads (200
+     Mbp) by the seq kernel, on 1 shard under PHI_TPU_DEVICE_READ_SKETCH=1
+     and on 4 shards of cuda:0, equal to the native scan, with the seq
+     launches, the card's busy time (torch.profiler) and the wall of each
+     beside the native scan's wall; (b) the phase-4 instance at -k 31 -w
+     25 -R 100 through run_pipeline on make_mesh(4, devices=[cuda:0] * 4),
+     (dp, hap, sp) = (1, 2, 2), cold then warm: certified, phase 4's warm
+     FASTA and report, rows launches and no rows3, 4 seq launches, the
+     ladder's sharded solves counted, and the first solve's M bit-equal
+     to solve_dp's on the same tables; (c) meshes of 2, 4 and 8 shards on
+     cuda:0 and on the CPU on the phase-3 instance: byte-identical FASTA
+     and reports (8 shards is the one mesh with dp = 2), equal to phase
+     3's; sharded_full_step at 8 shards on cuda:0 against the CPU; (d)
+     `python -m phi_tpu_torch.cli ... --mesh 4` with one visible card
+     exits 1 with [E::main] naming it and writes no FASTA, and
+     `PHI_TPU_DEVICE_READ_SKETCH=1 python -m phi_tpu_torch.eval.throughput
+     --mbases 64 --repeats 5` reports the device sketch's bases/s.
+Phases 4-14 set every kernel's launch count to 0 just before each run and
+read them just after; the kernels JSON adds the launches of phase 13 and
+of phase 14's mesh run (14b) to those of the phase that first runs each
+kernel. The second-to-last line is the
 kernels JSON, the last the device JSON. Instances are generated from a
 seed into phi_tpu_torch/_build/scale/.
 """
@@ -335,15 +354,16 @@ def compare(name: str, args, *params) -> int:
     return err
 
 
-def run_port(paths, out, argv, device):
-    """One run through the CLI's options; -r is passed on --load-index runs
-    too (the reads are not read then), so the FASTA record name is the
-    same as the other runs'."""
+def run_port(paths, out, argv, device, mesh=None):
+    """One run through the CLI's options (on `mesh` if given); -r is passed
+    on --load-index runs too (the reads are not read then), so the FASTA
+    record name is the same as the other runs'."""
     from phi_tpu_torch import cli
     from phi_tpu_torch.pipeline import run_pipeline
     opt = cli.options_from_args(cli.build_parser().parse_args(
         ["-g", paths["gfa"], "-r", paths["reads"], "-o", out] + argv))
-    return run_pipeline(paths["gfa"], paths["reads"], out, opt, device=device)
+    return run_pipeline(paths["gfa"], paths["reads"], out, opt, device=device,
+                        mesh=mesh)
 
 
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
@@ -395,16 +415,16 @@ def read_launches() -> dict:
     return {n: getattr(tk, f"sketch_{n}").launches for n in KERNELS}
 
 
-def run_counted(paths, out, argv, dev):
-    """One run of the pipeline on the card with every kernel's launch count
-    set to 0 just before it; returns (result, wall s, launches by name,
-    peak device memory B)."""
+def run_counted(paths, out, argv, dev, mesh=None):
+    """One run of the pipeline on the card (on `mesh` if given) with every
+    kernel's launch count set to 0 just before it; returns (result, wall s,
+    launches by name, peak device memory B)."""
     import torch
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     t0 = time.time()
-    r = run_port(paths, out, argv, dev)
+    r = run_port(paths, out, argv, dev, mesh)
     torch.cuda.synchronize()
     wall = time.time() - t0
     return r, wall, read_launches(), torch.cuda.max_memory_allocated()
@@ -617,12 +637,13 @@ def chain_site(r):
 @contextlib.contextmanager
 def spy(module, name: str):
     """Wrap module.name for the block: every call still runs, and its
-    return value is appended to the list the block gets."""
+    (positional args, return value) is appended to the list the block
+    gets."""
     real, seen = getattr(module, name), []
 
     def wrapped(*args, **kwargs):
         out = real(*args, **kwargs)
-        seen.append(out)
+        seen.append((args, out))
         return out
 
     setattr(module, name, wrapped)
@@ -653,7 +674,7 @@ def cli_counted(argv):
         rc = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    return (rc, runs[0] if runs else None, wall, read_launches(),
+    return (rc, runs[0][1] if runs else None, wall, read_launches(),
             torch.cuda.max_memory_allocated(), err.getvalue())
 
 
@@ -725,15 +746,16 @@ sys.exit(rc)
 """ % (KERNELS,)
 
 
-def module_counted(module: str, args: list[str], timeout: int):
-    """`python -m module args` as a child process through PROBE; returns
-    (exit code, wall s, stdout, its launches by kernel, its peak device
-    memory B, stderr). The launches and peak are None if the child did not
-    reach its end."""
+def module_counted(module: str, args: list[str], timeout: int, env=None):
+    """`python -m module args` as a child process through PROBE (with the
+    environment `env`, by default this process's); returns (exit code,
+    wall s, stdout, its launches by kernel, its peak device memory B,
+    stderr). The launches and peak are None if the child did not reach
+    its end."""
     t0 = time.time()
     res = subprocess.run([sys.executable, "-c", PROBE, module, *args],
                          capture_output=True, text=True, cwd=ROOT,
-                         timeout=timeout)
+                         timeout=timeout, env=env)
     wall = time.time() - t0
     probe = [ln for ln in res.stderr.splitlines() if ln.startswith("[probe] ")]
     got = json.loads(probe[-1][len("[probe] "):]) if probe else {}
@@ -987,6 +1009,202 @@ def phase13(big, dev, main_fa: str, main_edit: int, g49, launches) -> int:
     return 0
 
 
+def profiled_busy(fn):
+    """fn() once more under torch.profiler: the card's busy seconds in it
+    (the union of its kernel, copy and fill intervals)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from phi_tpu_torch.trace import device_events, merged_us
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return merged_us((s, e) for _, s, e in device_events(prof)) / 1e6
+
+
+def phase14(big, chrom, small, dev, main_fa: str, main_report, small_fa,
+            launches) -> int:
+    """Phase 14: the mesh and the device read sketch on the one card (paths
+    of the phase-4, phase-6 and phase-3 instances, phase 4's warm FASTA and
+    (report, recombinations), phase 3's FASTA); adds the mesh run's (14b)
+    launches to `launches`. Returns 0, or 1 after a failure line."""
+    import numpy as np
+    import torch
+    from phi_tpu_torch import pipeline
+    from phi_tpu_torch.io.reads import load_read_batch
+    from phi_tpu_torch.parallel.sharded import (make_mesh,
+                                                prepare_sharded_tables,
+                                                sharded_full_step)
+    from phi_tpu_torch.sketch.minimizer import (DEVICE_READ_SKETCH,
+                                                native_spectrum,
+                                                sketch_read_concat)
+    from phi_tpu_torch.solve.dp import solve_dp
+    from phi_tpu_torch.solve.prep import build_solver_tables
+    t14 = time.time()
+    flags = ["-k", "31", "-w", "25", "-R", "100"]
+
+    # 14a: the device read sketch at 5 and 200 Mbp, 1 and 4 shards
+    for label, paths in (("5 Mbp", big), ("200 Mbp", chrom)):
+        t0 = time.time()
+        reads = load_read_batch(paths["reads"])
+        t_load = time.time() - t0
+        t0 = time.time()
+        want = native_spectrum(reads.concat, reads.off, 31, 25)
+        t_native = time.time() - t0
+        log(f"phase 14a {label}: {reads.n_reads} reads, {reads.total_bases} "
+            f"bases loaded in {t_load:.3f} s; native scan {t_native:.3f} s, "
+            f"spectrum {len(want[0])} keys ({CARD})")
+        for shards in (1, 4):
+            devices = [dev] * shards if shards > 1 else None
+            if shards == 1:
+                os.environ[DEVICE_READ_SKETCH] = "1"
+            try:
+                def sketch():
+                    return sketch_read_concat(reads.concat, reads.off, 31, 25,
+                                              devices=devices, device=dev)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_launches()
+                t0 = time.time()
+                got = sketch()
+                torch.cuda.synchronize()
+                wall, n = time.time() - t0, read_launches()
+                peak = torch.cuda.max_memory_allocated()
+                busy = profiled_busy(sketch)
+            finally:
+                os.environ.pop(DEVICE_READ_SKETCH, None)
+            same = all(np.array_equal(a, b) for a, b in zip(got, want))
+            log(f"phase 14a {label}, {shards} shard(s) on {dev}: wall "
+                f"{wall:.3f} s (native {t_native:.3f} s), card busy "
+                f"{busy:.4f} s (a second, profiled call), seq launches "
+                f"{n['seq']}, peak device memory {peak} B, spectrum equal "
+                f"to the native scan: {same} ({CARD})")
+            if not same:
+                return fail(f"phase 14a {label}, {shards} shard(s): the "
+                            f"spectrum differs from the native scan")
+            if n["seq"] < shards or n["seq"] != sum(
+                    v for v in n.values()):
+                return fail(f"phase 14a {label}: launches {json.dumps(n)}")
+        del reads
+
+    # 14b: the mesh at size, four shards of cuda:0
+    mesh = make_mesh(4, devices=[dev] * 4)
+    bdir = os.path.dirname(big["gfa"])
+    mesh_fa = os.path.join(bdir, "port_mesh.fa")
+    for run in ("cold", "warm"):
+        with spy(pipeline, "solve_dp_sharded") as solves:
+            r, wall, n, peak = run_counted(big, mesh_fa, flags, dev, mesh)
+        certified = report(f"phase 14b mesh {mesh!r} {run}", r, wall, n,
+                           peak, read_truth(big), 100.0)
+        log(f"phase 14b {run}: {len(solves)} sharded solves (the ladder's "
+            f"re-solves: {len(solves) - 1}), solver on "
+            f"{r.decode.solver_device} ({CARD})")
+        if not certified:
+            return fail("phase 14b: the mesh run is not certified")
+        if n["rows"] <= 0 or n["rows3"] or n["seq"] != 4:
+            return fail(f"phase 14b launches: {json.dumps(n)}")
+        if not same_file(mesh_fa, main_fa) or (
+                r.report_segments, r.recombination_count) != main_report:
+            return fail("phase 14b: FASTA or report differs from phase 4 "
+                        "(warm)")
+        if not solves or not r.decode.solver_device.startswith(dev.type):
+            return fail(f"phase 14b: no sharded solve on {dev.type}")
+        (tables, _, max_sweeps), (sol, ends, sweeps, _) = solves[0]
+        one, ends1, sweeps1, _ = solve_dp(tables, max_sweeps, dev)
+        equal = (torch.equal(sol.M, one.M) and np.array_equal(ends, ends1)
+                 and sweeps == sweeps1)
+        log(f"phase 14b {run}: the first solve's M [{tuple(sol.M.shape)}], "
+            f"ends and {sweeps} sweeps bit-equal to solve_dp's on {dev}: "
+            f"{equal}")
+        if not equal:
+            return fail("phase 14b: the sharded M differs from solve_dp's")
+        del solves, sol, one, tables
+    for kern in ("rows", "seq"):
+        launches[kern] += n[kern]
+
+    # 14c: small meshes on cuda:0 and on the CPU, the phase-3 instance
+    sdir = os.path.dirname(small["gfa"])
+    first = None
+    for n_shards in (2, 4, 8):
+        for d in (dev, torch.device("cpu")):
+            out = os.path.join(sdir, f"port_mesh{n_shards}_{d.type}.fa")
+            m = make_mesh(n_shards, devices=[d] * n_shards)
+            t0 = time.time()
+            r = run_port(small, out, [], d, m)
+            log(f"phase 14c {m!r}: wall {time.time() - t0:.3f} s, "
+                f"{r.recombination_count} recombinations, bound "
+                f"{r.decode.dp_objective:.3f}, objective "
+                f"{r.decode.true_objective:.3f} ({CARD})")
+            key = (r.report_segments, r.recombination_count,
+                   r.decode.dp_objective, r.decode.true_objective)
+            if first is None:
+                first = key
+            if key != first or not same_file(out, small_fa):
+                return fail(f"phase 14c: {m!r} differs (FASTA against "
+                            f"phase 3's, report, bound or objective)")
+    log("phase 14c: meshes of 2, 4 and 8 shards on cuda:0 and the CPU: "
+        "byte-identical FASTA (== phase 3's), same report, bound and "
+        "objective")
+    reads = load_read_batch(small["reads"])
+    n_reads = 256
+    lens = np.diff(reads.off)[:n_reads].astype(np.int32)
+    codes = np.full((n_reads, int(lens.max())), 4, np.uint8)
+    for i in range(n_reads):
+        codes[i, :lens[i]] = reads.concat[reads.off[i]:reads.off[i + 1]]
+    spectrum = native_spectrum(reads.concat[:reads.off[n_reads]],
+                               reads.off[:n_reads + 1], 31, 25)
+    tables = build_solver_tables(r.graph, r.anchors, 100.0)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        m = make_mesh(8, devices=[d] * 8)
+        S, B, sv, wl = prepare_sharded_tables(tables, m)
+        zero_launches()
+        t0 = time.time()
+        hits, M, end_min = sharded_full_step(
+            m, k=31, w=25, R=100.0, n_vtx=tables.n_vtx, n_sweeps=4)(
+            codes, lens, *spectrum, S, B, sv, wl, tables.esrc_h,
+            tables.esrc_p, tables.esrc_target)
+        outs.append((hits.cpu(), M.cpu(), end_min))
+        log(f"phase 14c sharded_full_step {m!r}: {time.time() - t0:.3f} s, "
+            f"seq launches {read_launches()['seq']}, {int(hits.sum())} hits "
+            f"of {len(spectrum[0])} keys, end_min {end_min} ({CARD})")
+    (h1, m1, e1), (h2, m2, e2) = outs
+    if not (torch.equal(h1, h2) and torch.equal(m1, m2) and e1 == e2):
+        return fail("phase 14c: sharded_full_step differs between cuda:0 "
+                    "and the CPU")
+
+    # 14d: the CLI's too-few-cards refusal, the device sketch's throughput
+    cli_fa = os.path.join(bdir, "port_mesh_cli.fa")
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, "-m", "phi_tpu_torch.cli", "-g", big["gfa"], "-r",
+         big["reads"], "-o", cli_fa, "--mesh", "4"] + flags,
+        capture_output=True, text=True, cwd=ROOT, timeout=300)
+    log(f"phase 14d: --mesh 4 on {torch.cuda.device_count()} visible card: "
+        f"exit {res.returncode} in {time.time() - t0:.3f} s, stderr "
+        f"{res.stderr.strip()[-300:]!r}")
+    if res.returncode != 1 or "[E::main]" not in res.stderr \
+            or "1 visible" not in res.stderr or os.path.exists(cli_fa):
+        return fail("phase 14d: --mesh 4 on one card was not refused")
+    rc, wall, stdout, n, peak, err = module_counted(
+        "phi_tpu_torch.eval.throughput", ["--mbases", "64", "--repeats",
+                                          "5"], 600,
+        env=dict(os.environ, **{DEVICE_READ_SKETCH: "1"}))
+    lines = [json.loads(ln) for ln in stdout.splitlines()
+             if ln.startswith("{")]
+    for line in lines:
+        log(f"phase 14d throughput (device read sketch): {json.dumps(line)}")
+    log(f"phase 14d: exit {rc}, wall {wall:.3f} s (the child process), "
+        f"launches {json.dumps(n)}, peak device memory {peak} B ({CARD})")
+    sketch = [line for line in lines if line["metric"] == "sketch"]
+    if rc != 0 or not sketch or n is None or n["seq"] <= 0:
+        return fail(f"phase 14d: the throughput runner exited {rc} or ran "
+                    f"no seq kernel: {err[-2000:]}")
+    log(f"phase 14: {time.time() - t14:.3f} s in all ({CARD})")
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "phi_tpu_torch")):
         return fail("phi_tpu_torch/ is not beside chip_smoke.py")
@@ -1163,6 +1381,7 @@ def main() -> int:
                 return fail("the wide-k run is not certified")
             if phase == 4 and run == "warm":
                 main_edit = edit_stats(r.sequence, truth).edit_distance
+                main_report = (r.report_segments, r.recombination_count)
         for args in instance_batches(r, k, 25, dev, False):
             check(kern, args, k, 25, tk.block_cap(25))
         log(f"{kern} equal to twin on the 49 x 5 Mbp instance's first 2 "
@@ -1312,9 +1531,10 @@ def main() -> int:
     log(f"phase 10: 80 empty segments after node {node}, in the "
         f"{len(holders)} walks that visit it")
     chain_fa = os.path.join(bdir, "port_chain.fa")
-    with stderr_tee() as said, spy(pipeline, "solve_dp_both") as bracket:
+    with stderr_tee() as said, spy(pipeline, "solve_dp_both") as calls:
         r, wall, n, peak = run_counted(chain_paths, chain_fa, flags, dev)
     certified = report("phase 10 chain", r, wall, n, peak, truth, 100.0)
+    bracket = [out for _, out in calls]
     span = int((r.anchors.occ_end - r.anchors.occ_start).max())
     same = same_file(chain_fa, main_fa)
     log(f"phase 10: max span {span} walk positions; {len(bracket)} bracket "
@@ -1420,6 +1640,12 @@ def main() -> int:
 
     # --- phase 13: the eval runners at size, on the phase-4 instance ---
     if phase13(big, dev, main_fa, main_edit, save_run.graph, launches):
+        return 1
+
+    # --- phase 14: the mesh and the device read sketch on the card ---
+    if phase14(big, chrom, small, dev, main_fa, main_report,
+               os.path.join(os.path.dirname(small["gfa"]), "port_cuda.fa"),
+               launches):
         return 1
 
     replaces = {"rows3": 1000, "rows3w": 1340, "rows2": 688, "rows": 237,

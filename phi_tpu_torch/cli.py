@@ -5,6 +5,7 @@
         [-k 31 -w 25 -R 100 -T 1.0 ... --device cuda] [--save-index IDX.npz]
     python -m phi_tpu_torch.cli -g graph.gfa --load-index IDX.npz -o hap.fa \
         [-R 50 ...]
+    python -m phi_tpu_torch.cli ... --mesh N [--device cuda|cpu]
 
 --save-index writes the read spectrum and the per-haplotype join hits (the
 `.npz` of `phi_tpu`'s checkpoint: either package loads the other's);
@@ -18,9 +19,14 @@ a model dump (one summary line for a large model) and the chosen path's
 lines run unchanged, and does nothing: the reference races a CPU run only
 against a remote TPU's first compiles.
 
+--mesh N runs the reads' sketch, the join and every solve over a mesh of N
+devices, as phi's --mesh does (pipeline.py, parallel/sharded.py): with
+--device cuda, N visible cards; with --device cpu, N CPU shards.
+
 --device cuda (the default) needs a CUDA device: without one the command
-prints [E::main] and exits 1; it never runs on the CPU instead. --mesh is
-not ported yet and is rejected the same way.
+prints [E::main] and exits 1; it never runs on the CPU instead. A --mesh
+of more cards than are visible fails the same way, naming the count; it
+never runs the mesh on fewer cards than asked.
 """
 
 from __future__ import annotations
@@ -56,7 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Lagrangian refinement rounds when gap > 0 [8]")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="torch device for the sketch, join and solver [cuda]")
-    p.add_argument("--mesh", type=int, default=0, help="(not yet ported)")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="run over an N-device mesh (dp x hap x sp) [off]")
     p.add_argument("--save-index", default=None, metavar="NPZ",
                    help="write the spectrum + join-hit checkpoint here")
     p.add_argument("--load-index", default=None, metavar="NPZ",
@@ -73,7 +80,8 @@ def options_from_args(args) -> Options:
                    is_naive_exp=args.N, num_threads=args.t, max_occ=args.c,
                    debug=bool(args.d), max_sweeps=args.sweeps,
                    lagrangian_rounds=args.lagrangian,
-                   save_index=args.save_index, load_index=args.load_index)
+                   mesh_devices=args.mesh, save_index=args.save_index,
+                   load_index=args.load_index)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -82,10 +90,6 @@ def main(argv: list[str] | None = None) -> int:
     if args.version:
         print(f"PHI version: {__version__}")
         return 0
-    if args.mesh:
-        sys.stderr.write("[E::main] --mesh is not yet ported to "
-                         "phi_tpu_torch\n")
-        return 1
     if not (args.gfa and args.out and (args.reads or args.load_index)):
         build_parser().print_usage(sys.stderr)
         return 1
@@ -93,15 +97,16 @@ def main(argv: list[str] | None = None) -> int:
     plog.reset_timer()
     if args.race:
         plog.log("main", f"--race {args.race}: no effect (phi races a CPU run "
-                 "only against a remote TPU's first compiles)")
+                 "only against a remote TPU's first compiles, and never a "
+                 "--mesh run)")
     try:
         from phi_tpu_torch.pipeline import resolve_device, run_pipeline
         device = resolve_device(args.device)
         run_pipeline(args.gfa, args.reads, args.out, options_from_args(args),
                      device=device)
     except (ValueError, OSError, RuntimeError) as e:
-        # load failures, unported routes (NotImplementedError) and a missing
-        # CUDA device end as [E::main] and exit 1, without a traceback
+        # load failures, a missing CUDA device and a mesh of more cards
+        # than are visible end as [E::main] and exit 1, without a traceback
         sys.stderr.write(f"[E::main] {e}\n")
         return 1
     plog.footer(__version__, ["phi-torch"] + argv)

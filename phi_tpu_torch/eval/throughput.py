@@ -4,11 +4,16 @@ k-mer throughput, k-mers/s per device): the port's copy of
 
 Measures:
   * `sketch` — minimizer extraction over a read-shaped concatenation
-               (the reference's hot loops #1/#2, ILP_index.cpp:359-493),
-               the native host scan of `pipeline.read_spectrum`, as the
-               JAX package's single-device path takes it; reports bases/s
-               and k-mers/s (every window position is a k-mer the scan
-               evaluates);
+               (the reference's hot loops #1/#2, ILP_index.cpp:359-493)
+               through `sketch.minimizer.sketch_read_concat`: the native
+               host scan, as the JAX package's single-device path takes
+               it, or with PHI_TPU_DEVICE_READ_SKETCH=1 the seq kernel on
+               `device`; reports bases/s and k-mers/s (every window
+               position is a k-mer the scan evaluates);
+  * `sketch@Ndev` (`--mesh N`) — the same over a mesh of N devices of
+               `device`'s type (N visible cards for cuda, N CPU shards for
+               cpu): the reads split over the N devices, each shard on
+               the seq kernel (the dp axis of parallel/sharded.py);
   * `join`   — the fused sketch+join of one long sequence against a
                spectrum (hot loop #3): `sketch.kernels.join_many` on
                `device`, the rows kernel on a card; the spectrum is
@@ -18,10 +23,10 @@ Measures:
 Each metric reports the median of `repeats` warm runs with IQR and the
 raw observations (one untimed run first), plus, on a card, the
 memory-rate ceiling for the sketch's 2-bit packed input and the achieved
-fraction. Output: one JSON line per metric. The dp-sharded `sketch@N`
-metric (`--mesh`) is not ported yet.
+fraction. Output: one JSON line per metric.
 
-    python -m phi_tpu_torch.eval.throughput --mbases 64 [--device cuda]
+    python -m phi_tpu_torch.eval.throughput --mbases 64 [--device cuda] \
+        [--mesh N]
 """
 
 from __future__ import annotations
@@ -59,24 +64,26 @@ def _rand_reads(rng: np.random.Generator, total_bases: int,
 
 
 def bench_sketch(total_bases: int, k: int = 31, w: int = 25,
-                 repeats: int = 5) -> dict:
-    """Read-spectrum sketch throughput (the native scan of
-    `pipeline.read_spectrum`)."""
-    from phi_tpu_torch.io.reads import ReadBatch
-    from phi_tpu_torch.pipeline import read_spectrum
+                 repeats: int = 5, devices=None, device="cuda") -> dict:
+    """Read-spectrum sketch throughput (the sketch_read_concat path, with
+    `devices` a mesh's devices)."""
+    from phi_tpu_torch.sketch.minimizer import sketch_read_concat
     rng = np.random.default_rng(0)
     concat, off = _rand_reads(rng, total_bases)
-    reads = ReadBatch(np.diff(off).astype(np.int32), [], concat=concat,
-                      off=off)
-    hi, lo = read_spectrum(reads, k, w)  # warm-up
+
+    def run():
+        return sketch_read_concat(concat, off, k, w, devices=devices,
+                                  device=device)
+    hi, lo = run()  # warm-up
     times = []
     for _ in range(repeats):
         t0 = time.time()
-        hi, lo = read_spectrum(reads, k, w)
+        hi, lo = run()
         times.append(time.time() - t0)
     st = summarize(times)
     n_windows = len(concat) - (len(off) - 1) * (k + w - 2)  # evaluated k-mers
-    return {"data": "synthetic", "metric": "sketch",
+    return {"data": "synthetic", "metric": "sketch" if devices is None
+            else f"sketch@{len(devices)}dev",
             "bases_per_s": round(len(concat) / st["median_s"]),
             "kmers_per_s": round(max(n_windows, 0) / st["median_s"]),
             "spectrum": int(len(hi)), **st}
@@ -120,23 +127,25 @@ def main(argv=None) -> int:
     ap.add_argument("--w", type=int, default=25)
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--mesh", type=int, default=0,
-                    help="(not yet ported)")
+                    help="also run the dp-sharded sketch over N devices")
     ap.add_argument("--out", default=None, help="write JSONL artifact here")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                    help="torch device of the join [cuda]")
+                    help="torch device of the join and the device "
+                         "sketch [cuda]")
     args = ap.parse_args(argv)
-    if args.mesh > 1:
-        sys.stderr.write("[E::main] --mesh is not yet ported to "
-                         "phi_tpu_torch\n")
-        return 1
     try:
         import torch
 
-        from phi_tpu_torch.pipeline import resolve_device
+        from phi_tpu_torch.pipeline import mesh_for, resolve_device
         device = resolve_device(args.device)
+        mesh = mesh_for(args.mesh, device) if args.mesh > 1 else None
         total = int(args.mbases * 1e6)
-        rows = [bench_sketch(total, args.k, args.w, args.repeats),
+        rows = [bench_sketch(total, args.k, args.w, args.repeats,
+                             device=device),
                 bench_join(total, args.k, args.w, args.repeats, device)]
+        if mesh is not None:
+            rows.append(bench_sketch(total, args.k, args.w, args.repeats,
+                                     devices=mesh.flat))
     except (ValueError, OSError, RuntimeError) as e:
         sys.stderr.write(f"[E::main] {e}\n")
         return 1

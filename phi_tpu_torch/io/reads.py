@@ -1,9 +1,9 @@
 """FASTA/FASTQ (optionally gzip) reads: the port's copy of
 `phi_tpu/io/reads.py`'s native loader. Reads come back as one ragged
 concatenation of base codes with offsets, which the native read-spectrum
-scan takes as it is. The JAX package's pure-Python reader and its padded
-2-D batch (for its device read sketch) are not copied: the port needs the
-native library and has no device read sketch yet.
+scan and the device read sketch (`sketch.minimizer.sketch_read_concat`)
+take as it is. The JAX package's pure-Python reader and its padded 2-D
+batch are not copied: the port needs the native library.
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
-"""End-to-end orchestration on one torch device: graph + reads -> inferred
-haplotype FASTA. The counterpart of `phi_tpu/pipeline.py`, with the same
-[M::] phase-log lines and the same `timings` keys.
+"""End-to-end orchestration on one torch device or a mesh of them: graph +
+reads -> inferred haplotype FASTA. The counterpart of `phi_tpu/pipeline.py`,
+with the same [M::] phase-log lines and the same `timings` keys.
 
-Stages: graph ingest and the read spectrum on the host (native C++); then
-one of two anchor routes:
+Stages: graph ingest and the read spectrum on the host (native C++; with
+PHI_TPU_DEVICE_READ_SKETCH=1 the seq kernel on the device,
+`sketch.minimizer.sketch_read_concat`); then one of two anchor routes:
   * the device anchors (the default): the haplotype sketch, join and
     threshold filter on the device (anchors/device.py, through the rows3,
     rows3w or rows2 kernel);
@@ -25,9 +26,20 @@ Then the exact-credit DP on the device (solve/dp.py), or, where spans
 need more than MAX_LAYERS straddle layers, the bracket solve (the search
 and the optimistic fixpoints, both decoded); decode, the Lagrangian /
 subgradient / exact / branch-and-bound certification ladder and emit on
-the host. With `-d` (opt.debug) the run also prints the reference's
-k-mer sharing histogram (after the sketch), a model dump and the chosen
-path's `[D]` segment lines (after the solve).
+the host.
+
+On a mesh (`mesh`, or `opt.mesh_devices` > 1: `--mesh N`, N devices of
+`device`'s type, which for cuda must be visible cards), as in phi_tpu: the
+reads are split over every device of the mesh and sketched by the seq
+kernel on each (parallel/sharded.py's dp axis); the device anchors are
+bypassed, and the hit path joins with join_many round-robined over the
+mesh's devices (the rows kernel), plus the host joins above; every solve
+of the ladder is sharded over hap x sp (`parallel.sharded.solve_dp_sharded`,
+which decodes the search fixpoint in bracket mode).
+
+With `-d` (opt.debug) the run also prints the reference's k-mer sharing
+histogram (after the sketch), a model dump and the chosen path's `[D]`
+segment lines (after the solve).
 """
 
 from __future__ import annotations
@@ -50,15 +62,17 @@ from phi_tpu_torch.graph.pangenome import PangenomeGraph, tensorize
 from phi_tpu_torch.io.fasta import hap_name_from_paths, write_fasta
 from phi_tpu_torch.io.gfa import read_gfa
 from phi_tpu_torch.io.reads import load_read_batch
+from phi_tpu_torch.parallel.sharded import Mesh, make_mesh, solve_dp_sharded
 from phi_tpu_torch.sketch.encode import combine64
 from phi_tpu_torch.sketch.kernels import HALO_PAD, NARROW_MAX_K, join_many
-from phi_tpu_torch.sketch.minimizer import host_join_many, sketch_join_walks
+from phi_tpu_torch.sketch.minimizer import (NO_NATIVE, host_join_many,
+                                            native_spectrum,
+                                            sketch_join_walks,
+                                            sketch_read_concat)
 from phi_tpu_torch.solve.decode import (DecodeResult, covered_occurrences,
                                        decode_path)
 from phi_tpu_torch.solve.dp import LAST_TIMINGS, solve_dp, solve_dp_both
 from phi_tpu_torch.solve.prep import build_solver_tables, solver_layers
-
-_NOT_PORTED = "not yet ported to phi_tpu_torch"
 
 
 @dataclasses.dataclass
@@ -86,10 +100,6 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-_NO_NATIVE = ("the native library is unavailable "
-              "(make -C native needs g++ and zlib)")
-
-
 def native_available() -> bool:
     """Whether the native host library (graph ingest, read spectrum) loads;
     `make -C native` builds it on first use."""
@@ -100,24 +110,29 @@ def read_spectrum(reads, k: int, w: int) -> tuple[np.ndarray, np.ndarray]:
     """Distinct canonical minimizers of the reads as (hi, lo) uint32, from
     the native per-read scan; for k > 31 the keys are the 64-bit folds
     (fold128_64) of the 126-bit canonical k-mers."""
-    if reads.concat is None or len(reads.concat) < w + k - 1:
-        z = np.zeros(0, np.uint32)
-        return z, z.copy()
-    keys = native.spectrum_native(reads.concat, reads.off, k, w)
-    if keys is None:
-        raise RuntimeError(_NO_NATIVE)
-    uniq = np.unique(keys)
-    return ((uniq >> np.uint64(32)).astype(np.uint32),
-            (uniq & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    return native_spectrum(reads.concat, reads.off, k, w)
+
+
+def mesh_for(n: int, device) -> Mesh:
+    """The mesh of `--mesh n` on `device`'s type: n visible cards for cuda
+    (a ValueError naming the count when fewer are visible), n CPU shards
+    for cpu."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return make_mesh(n, devices=[device] * n)
+    return make_mesh(n)
 
 
 def run_pipeline(gfa_path: str, reads_path: str | None, out_path: str | None,
-                 opt: Options, device="cuda") -> PipelineResult:
+                 opt: Options, device="cuda", mesh: Mesh | None = None
+                 ) -> PipelineResult:
+    """One inference. `mesh` (or opt.mesh_devices > 1, a mesh_for `device`)
+    shards the read sketch, the join and every solve over its devices."""
     device = resolve_device(device)
-    if opt.mesh_devices:
-        raise NotImplementedError(f"--mesh is {_NOT_PORTED}")
+    if mesh is None and opt.mesh_devices and opt.mesh_devices > 1:
+        mesh = mesh_for(opt.mesh_devices, device)
     if not native_available():
-        raise RuntimeError(_NO_NATIVE)
+        raise RuntimeError(NO_NATIVE)
     if opt.num_threads:
         native.set_threads(opt.num_threads)
     timings: dict[str, float] = {}
@@ -163,21 +178,24 @@ def run_pipeline(gfa_path: str, reads_path: str | None, out_path: str | None,
                  f"Graph has {graph.n_vtx} vertices, {graph.num_walks} walks "
                  f"and read has {reads.n_reads} reads")
         t1 = time.time()
-        spectrum = read_spectrum(reads, opt.k, opt.w)
+        spectrum = sketch_read_concat(
+            reads.concat, reads.off, opt.k, opt.w,
+            devices=mesh.flat if mesh else None, device=device)
         timings["sketch_reads"] = time.time() - t1
 
         t1 = time.time()
         plog.raw("Number of Minimizers")
         hap_codes = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
         dres = None
-        if not opt.save_index and len(spectrum[0]):
+        if not opt.save_index and mesh is None and len(spectrum[0]):
             # haplotype sketch + join + threshold filter, on the device;
             # None where the reference leaves it for the hit path
             dres = join_anchors_device(
                 graph, hap_codes, opt.k, opt.w, spectrum[0], spectrum[1],
                 opt.threshold, device=device)
         if dres is None:
-            hits = _join_hits(graph, hap_codes, opt, spectrum, device)
+            hits = _join_hits(graph, hap_codes, opt, spectrum, device,
+                              mesh.flat if mesh else None)
             per_hap_min = [n for n, _, _ in hits]
         else:
             per_hap_min, dev_occ = dres
@@ -232,7 +250,7 @@ def run_pipeline(gfa_path: str, reads_path: str | None, out_path: str | None,
              f"select equivalent formulations (DP solves the shared optimum "
              f"directly); -c {opt.max_occ} accepted, unused")
     t1 = time.time()
-    result = _solve_with_refinement(graph, anchors, opt, device)
+    result = _solve_with_refinement(graph, anchors, opt, device, mesh)
     for key, val in LAST_TIMINGS.items():
         timings[f"solve_{key}"] = val
     plog.log("ILP_function", "Model optimized")
@@ -334,16 +352,18 @@ def _debug_model_dump(graph: PangenomeGraph, anchors: AnchorTables,
                  f"weight={float(anchors.occ_weight[i]):g}")
 
 
-def _join_hits(graph, hap_codes, opt: Options, spectrum, device):
+def _join_hits(graph, hap_codes, opt: Options, spectrum, device,
+               devices=None):
     """The hit path's join: per-hap (n_minimizers, positions, spectrum ids).
-    For k <= 31 within the kernels' halo, join_many on the device, and the
-    native host join for each walk it hands back (walks holding N); for
-    k > 31 or k + w - 2 beyond the halo, the native host join of every
-    walk (the reference's choice, pipeline.py:217-232 of the JAX
-    package)."""
+    For k <= 31 within the kernels' halo, join_many on the device (walks
+    round-robined over `devices` on a mesh), and the native host join for
+    each walk it hands back (walks holding N); for k > 31 or k + w - 2
+    beyond the halo, the native host join of every walk (the reference's
+    choice, pipeline.py:217-232 of the JAX package)."""
     if opt.k > NARROW_MAX_K or opt.k + opt.w - 2 > HALO_PAD:
         return sketch_join_walks(graph, opt.k, opt.w, *spectrum)
-    hits = join_many(hap_codes, opt.k, opt.w, *spectrum, device=device)
+    hits = join_many(hap_codes, opt.k, opt.w, *spectrum, device=device,
+                     devices=devices)
     left = [h for h, out in enumerate(hits) if out is None]
     for h, out in zip(left, host_join_many(hap_codes, left, opt.k, opt.w,
                                            *spectrum)):
@@ -362,13 +382,18 @@ def _hydrate_tables(tables, anchors) -> None:
         tables.occ_weight = anchors.occ_weight
 
 
-def _solve_and_decode(graph, tables, anchors, opt: Options,
-                      device) -> DecodeResult:
+def _solve_and_decode(graph, tables, anchors, opt: Options, device,
+                      mesh: Mesh | None = None) -> DecodeResult:
     """Exact mode (tables.n_layers set): one exact-credit fixpoint, whose
     decoded path is the optimal relaxed path and its value a valid bound.
     Bracket mode: the search and the optimistic fixpoints are both decoded
     and the path with the lower exact objective is kept; the bound is the
-    optimistic fixpoint's."""
+    optimistic fixpoint's. On a mesh, solve_dp_sharded, and its one
+    solution decoded (the JAX package's mesh branch)."""
+    if mesh is not None:
+        _hydrate_tables(tables, anchors)
+        M, ends, sweeps, lb = solve_dp_sharded(tables, mesh, opt.max_sweeps)
+        return decode_path(graph, tables, anchors, M, ends, sweeps, lb)
     if tables.n_layers is not None:
         M, ends, sweeps, lb = solve_dp(tables, opt.max_sweeps, device)
         _hydrate_tables(tables, anchors)
@@ -400,7 +425,8 @@ def gap_tol(R: float) -> float:
 
 
 def _solve_with_refinement(graph: PangenomeGraph, anchors: AnchorTables,
-                           opt: Options, device) -> DecodeResult:
+                           opt: Options, device,
+                           mesh: Mesh | None = None) -> DecodeResult:
     """One DP solve; if the decoded path's exact objective is above the DP
     bound (duplicate k-mer credit), Lagrangian reweighting rounds, then the
     exact small-case enumeration, projected subgradient ascent and
@@ -418,7 +444,7 @@ def _solve_with_refinement(graph: PangenomeGraph, anchors: AnchorTables,
     if max_span > 0:
         layers = min(layers, _bucket_layers(max_span - 1))
     tables = build_solver_tables(graph, anchors, opt.recombination, layers)
-    best = _solve_and_decode(graph, tables, anchors, opt, device)
+    best = _solve_and_decode(graph, tables, anchors, opt, device, mesh)
     best_bound = best.dp_objective
     rounds = opt.lagrangian_rounds
     tol = gap_tol(opt.recombination)
@@ -454,7 +480,7 @@ def _solve_with_refinement(graph: PangenomeGraph, anchors: AnchorTables,
             anchors, occ_weight=mu[anchors.occ_kmer])
         tables = build_solver_tables(graph, anchors_w, opt.recombination,
                                      layers)
-        cand = _solve_and_decode(graph, tables, anchors_w, opt, device)
+        cand = _solve_and_decode(graph, tables, anchors_w, opt, device, mesh)
         relax_path = cand
         improved = cand.dp_objective > best_bound + 1e-6
         if improved:
@@ -489,7 +515,7 @@ def _solve_with_refinement(graph: PangenomeGraph, anchors: AnchorTables,
     if best.true_objective - best_bound > tol and n_kmer_ids:
         best_mu, best_bound, best = _subgradient_phase(
             graph, anchors, opt, layers, best_mu, best_bound, best, tol,
-            device)
+            device, mesh)
     if best.true_objective - best_bound > tol:
         import os
         from phi_tpu_torch.solve.bnb import branch_and_bound
@@ -498,7 +524,7 @@ def _solve_with_refinement(graph: PangenomeGraph, anchors: AnchorTables,
             mu=best_mu if n_kmer_ids else None, incumbent=best,
             max_nodes=int(os.environ.get("PHI_TPU_BNB_NODES", "48")),
             max_seconds=float(os.environ.get("PHI_TPU_BNB_SECS", "120")),
-            layers=layers, device=device)
+            layers=layers, device=device, mesh=mesh)
         if bb_best.true_objective < best.true_objective:
             best = bb_best
         best_bound = max(best_bound, bb_bound)
@@ -512,7 +538,8 @@ def _solve_with_refinement(graph: PangenomeGraph, anchors: AnchorTables,
 
 def _subgradient_phase(graph: PangenomeGraph, anchors, opt: Options,
                        layers, mu0: np.ndarray, best_bound: float, best,
-                       tol: float, device, max_iters: int = 40):
+                       tol: float, device, mesh: Mesh | None = None,
+                       max_iters: int = 40):
     """Projected subgradient ascent on the Lagrangian dual from mu0:
     g_i = 1 - (covered multiplicity of k-mer i on the relaxation argmin),
     Polyak step (UB - L)/||g||^2 with backoff on stall. Returns
@@ -529,7 +556,7 @@ def _subgradient_phase(graph: PangenomeGraph, anchors, opt: Options,
             anchors, occ_weight=mu.astype(np.float32)[anchors.occ_kmer])
         tables = build_solver_tables(graph, anchors_w, opt.recombination,
                                      layers)
-        cand = _solve_and_decode(graph, tables, anchors_w, opt, device)
+        cand = _solve_and_decode(graph, tables, anchors_w, opt, device, mesh)
         improved = cand.dp_objective > best_bound + 1e-6
         if improved:
             best_bound = cand.dp_objective

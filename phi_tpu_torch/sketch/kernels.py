@@ -912,7 +912,7 @@ def pack_join_batch(seqs, batch, row_lanes: int, device):
 
 
 def join_many(seqs: list[np.ndarray], k: int, w: int, sp_hi, sp_lo, *,
-              device, rows_per_call: int | None = None,
+              device, devices=None, rows_per_call: int | None = None,
               super_blocks: int | None = None):
     """Sketch + join of many sequences against the read spectrum (the port
     of pallas_join_many): per sequence, (n_minimizers, hit positions int32,
@@ -927,7 +927,22 @@ def join_many(seqs: list[np.ndarray], k: int, w: int, sp_hi, sp_lo, *,
     emitted lanes overflow emitcap or whose hits overflow cap_total (the
     reference's join_caps) is rerun with the caps raised to the next power
     of two; n_min is exact either way. The geometry defaults to ROWS rows
-    of SUPER_BLOCKS blocks, read when called."""
+    of SUPER_BLOCKS blocks, read when called.
+
+    With `devices` (a mesh's devices, which may repeat), the sequences are
+    round-robined over them, sequence j on devices[j % len(devices)], each
+    device joining against its own copy of the spectrum table; the
+    results come back in sequence order, the same as with devices None."""
+    if devices is not None and len(devices) > 1:
+        results: list = [None] * len(seqs)
+        for j, d in enumerate(devices):
+            idx = list(range(j, len(seqs), len(devices)))
+            outs = join_many([seqs[i] for i in idx], k, w, sp_hi, sp_lo,
+                             device=d, rows_per_call=rows_per_call,
+                             super_blocks=super_blocks) if idx else []
+            for i, out in zip(idx, outs):
+                results[i] = out
+        return results
     if not 1 <= k <= NARROW_MAX_K:
         raise ValueError(f"join_many needs 1 <= k <= {NARROW_MAX_K}, "
                          f"got k={k}")

@@ -45,7 +45,8 @@ def branch_and_bound(graph, anchors, opt, tol: float,
                      incumbent=None,
                      max_nodes: int = 48, max_seconds: float = 120.0,
                      ascent_rounds: int = 4,
-                     solve_and_decode=None, layers=None, device="cpu"):
+                     solve_and_decode=None, layers=None, device="cpu",
+                     mesh=None):
     """Close (or tighten) the duality gap exactly.
 
     mu: fixed per-k-mer multipliers in [0,1] for the ROOT node (pass the
@@ -54,7 +55,7 @@ def branch_and_bound(graph, anchors, opt, tol: float,
     DecodeResult known so far (upper bound). Returns
     (best DecodeResult, certified_bound); on budget exhaustion the bound
     is the best proven so far (still valid). device: where each node's DP
-    runs."""
+    runs (mesh: over which it is sharded)."""
     from phi_tpu_torch.pipeline import _solve_and_decode as _sad
     from phi_tpu_torch.solve.prep import build_solver_tables, solver_layers
     if layers is None:
@@ -75,7 +76,7 @@ def branch_and_bound(graph, anchors, opt, tol: float,
         t = build_solver_tables(
             graph, a, opt.recombination, layers,
             const_override=float(node_mu[model_kmers].sum()))
-        return _sad(graph, t, a, opt, device)
+        return _sad(graph, t, a, opt, device, mesh)
 
     sad = solve_and_decode or _default_sad
 

@@ -11,8 +11,7 @@
   device-anchor path build the same tables.
 - Indexes load across the packages; mismatched k/w or haplotype counts
   exit 1 with [E::main]; walks holding N and k > 31 take the host join as
-  in phi_tpu, and `--mesh`, which the port has not taken over, raises and
-  names itself.
+  in phi_tpu, and `--mesh 2` saves the index of phi_tpu's mesh run.
 """
 
 import numpy as np
@@ -236,25 +235,19 @@ def _n_walk(d):
                   ["ACGTTGCAAGGCTTACGATCTTGACCAGTAGGCATTACGA"])
 
 
-@pytest.mark.parametrize("refusal,opt", [
-    (None, dict(k=5, w=3)),
-    (None, dict(k=35, w=25)),
-    ("--mesh", dict(k=5, w=3, mesh_devices=2)),
+@pytest.mark.parametrize("opt", [
+    dict(k=5, w=3),
+    dict(k=35, w=25),
+    dict(k=5, w=3, mesh_devices=2),
 ], ids=["n_walk", "wide_k", "mesh"])
-def test_save_index_refusals_name_their_condition(tmp_path, jax_run,
-                                                  refusal, opt):
+def test_save_index_refusals_name_their_condition(tmp_path, jax_run, opt):
     """A walk holding N and k > 31 take the host join on `--save-index`, as
-    in phi_tpu: the same FASTA and index arrays. `--mesh` stays a
-    refusal."""
+    in phi_tpu, and `--mesh 2` (once refused) joins over the mesh's two
+    devices with the N walk on the host: the same FASTA and index arrays
+    as phi_tpu's."""
     gfa_path, reads_path = (_n_walk(tmp_path) if opt["k"] == 5
                             else _mosaic(tmp_path))
     idx = tmp_path / "i.npz"
-    if refusal:
-        with pytest.raises(NotImplementedError, match=refusal):
-            run_pipeline(gfa_path, reads_path, None,
-                         Options(save_index=str(idx), **opt), device="cpu")
-        assert not idx.exists()
-        return
     jidx = tmp_path / "j.npz"
     want = jax_run(gfa_path, reads_path, str(tmp_path / "jax.fa"),
                    JaxOptions(save_index=str(jidx), **opt))

@@ -6,11 +6,14 @@
   (bracket mode) and on a model past the dump's size caps (its summary
   line).
 - `--race on|off|auto` is accepted and does nothing but log one line.
-- `--mesh` is still rejected with `[E::main]`.
+- `--mesh` on the CPU: `--device cpu --mesh 2` writes phi's `--mesh`
+  FASTA; `--device cuda --mesh 2` without two cards is rejected with
+  `[E::main]`.
 """
 
 import numpy as np
 import pytest
+import torch
 
 pytest.importorskip("jax")
 
@@ -88,11 +91,25 @@ def test_cli_race_is_accepted(tmp_path, capfd, race):
     assert f"--race {race}: no effect" in err
 
 
-def test_cli_mesh_still_rejected(tmp_path, capfd):
+def test_cli_mesh_still_rejected(tmp_path, capfd, monkeypatch):
+    """--mesh 2 is rejected on cuda without two visible cards (the CLI
+    never runs a mesh on fewer cards than asked), and on the CPU runs two
+    shards, writing phi's --mesh FASTA."""
+    from phi_tpu.pipeline import run_pipeline as jax_run
     from phi_tpu_torch.cli import main
     gfa_path, reads_path = _mosaic(tmp_path)
-    rc = main(["-g", gfa_path, "-r", reads_path, "-o", str(tmp_path / "o.fa"),
-               "--device", "cpu", "--mesh", "2"])
-    assert rc == 1
-    assert "[E::main] --mesh is not yet ported" in capfd.readouterr().err
-    assert not (tmp_path / "o.fa").exists()
+    argv = ["-g", gfa_path, "-r", reads_path, "-k", "11", "-w", "5",
+            "--mesh", "2"]
+    if torch.cuda.device_count() < 2:
+        assert main(argv + ["-o", str(tmp_path / "o.fa")]) == 1
+        err = capfd.readouterr().err
+        assert "[E::main]" in err and "CUDA device" in err
+        assert not (tmp_path / "o.fa").exists()
+    monkeypatch.setenv("PHI_TPU_FORCE_DEVICE_SOLVE", "1")
+    jax_run(gfa_path, reads_path, str(tmp_path / "jax.fa"),
+            JaxOptions(k=11, w=5, mesh_devices=2))
+    assert main(argv + ["-o", str(tmp_path / "port.fa"), "--device",
+                        "cpu"]) == 0
+    with open(tmp_path / "jax.fa", "rb") as a, \
+            open(tmp_path / "port.fa", "rb") as b:
+        assert a.read() == b.read()

@@ -13,8 +13,9 @@ CACHE_DIR pointed into the test's directory in both packages:
 - `bench_sketch`'s spectrum and `bench_join`'s hits at 200 kbp, and the
   v1 join's plan of one 64 Mbp sequence;
 - the scale and throughput CLIs: the same JSON keys (and values but the
-  times), `--mesh` refused, and exit 1 with [E::main] on cuda without a
-  card.
+  times), `--mesh` on the CPU (the `sketch@2dev` record of phi_tpu's
+  runner) and refused on cuda without the cards, and exit 1 with
+  [E::main] on cuda without a card.
 """
 
 import dataclasses
@@ -230,7 +231,18 @@ def test_cli_cuda_without_card_exits_1(caches, capsys, cli):
 
 
 def test_throughput_mesh_is_refused(capsys):
-    assert throughput.main(["--mbases", "0.2", "--mesh", "2", "--device",
-                            "cpu"]) == 1
-    assert capsys.readouterr().err == \
-        "[E::main] --mesh is not yet ported to phi_tpu_torch\n"
+    """--mesh 2 is refused on cuda without two visible cards; on the CPU
+    it adds phi_tpu's sketch@2dev record, the same spectrum as its
+    single-device sketch."""
+    if torch.cuda.device_count() < 2:
+        assert throughput.main(["--mbases", "0.2", "--mesh", "2"]) == 1
+        err = capsys.readouterr().err
+        assert err.startswith("[E::main]") and "CUDA device" in err
+    args = ["--mbases", "0.2", "--repeats", "1", "--mesh", "2"]
+    assert jthroughput.main(args) == 0
+    want = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert throughput.main(args + ["--device", "cpu"]) == 0
+    got = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [r["metric"] for r in got] == [r["metric"] for r in want] == \
+        ["sketch", "join", "sketch@2dev"]
+    assert got[2]["spectrum"] == want[2]["spectrum"] == got[0]["spectrum"]

@@ -192,7 +192,10 @@ def test_port_imports_nothing_of_phi_tpu_or_jax():
             "phi_tpu_torch/eval/scrape.py", "phi_tpu_torch/eval/batch.py",
             "phi_tpu_torch/io/subset.py", "phi_tpu_torch/eval/baselines.py",
             "phi_tpu_torch/eval/crossval.py", "phi_tpu_torch/eval/scale.py",
-            "phi_tpu_torch/eval/throughput.py"} <= rel
+            "phi_tpu_torch/eval/throughput.py",
+            "phi_tpu_torch/parallel/__init__.py",
+            "phi_tpu_torch/parallel/dist.py",
+            "phi_tpu_torch/parallel/sharded.py"} <= rel
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -233,9 +233,10 @@ def test_cli_matches_jax_cli(tmp_path):
 
 def test_port_run_loads_no_jax(tmp_path):
     """conftest imports jax into this process, so the runs (the default k
-    with -d 1, the wide k = 35, --save-index and --load-index, after
-    importing the eval runners and the VCF converter) are a child, which
-    then holds neither jax nor any module of phi_tpu."""
+    with -d 1, the wide k = 35, --save-index and --load-index, a --mesh 2
+    run and one with the device read sketch, after importing the eval
+    runners, the VCF converter and the mesh) are a child, which then holds
+    neither jax nor any module of phi_tpu."""
     gfa_path, reads_path = _mosaic(tmp_path)
     idx = str(tmp_path / "index.npz")
     code = ("import sys\n"
@@ -244,13 +245,17 @@ def test_port_run_loads_no_jax(tmp_path):
             "import phi_tpu_torch.eval.batch, phi_tpu_torch.eval.baselines\n"
             "import phi_tpu_torch.eval.crossval, phi_tpu_torch.eval.scale\n"
             "import phi_tpu_torch.eval.throughput, phi_tpu_torch.io.subset\n"
+            "import phi_tpu_torch.parallel.dist, os\n"
             "from phi_tpu_torch.cli import main\n"
             f"g = ['-g', {gfa_path!r}, '-o', {str(tmp_path / 'out.fa')!r}, "
             "'--device', 'cpu']\n"
             f"args = g + ['-r', {reads_path!r}]\n"
             "rc = (main(args + ['-d', '1']) + main(args + ['-k', '35'])\n"
             f"      + main(args + ['--save-index', {idx!r}])\n"
-            f"      + main(g + ['--load-index', {idx!r}, '-R', '2']))\n"
+            f"      + main(g + ['--load-index', {idx!r}, '-R', '2'])\n"
+            "      + main(args + ['--mesh', '2']))\n"
+            "os.environ['PHI_TPU_DEVICE_READ_SKETCH'] = '1'\n"
+            "rc += main(args + ['-k', '21'])\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'phi_tpu'))\n"
             "print('rc', rc, 'loaded', bad)\n")
@@ -277,11 +282,36 @@ def test_cli_cuda_without_gpu_exits_1(tmp_path, capsys):
                                   ["--mesh", "2", "--race", "off"],
                                   ["--mesh", "4", "-d", "1"]])
 def test_cli_rejects_unported_flags(tmp_path, capsys, flag):
-    """--mesh is the one flag not ported; -d and --race are, and do not
-    lift its refusal."""
+    """--mesh, once refused, is ported: with --device cpu these flag sets
+    run on N CPU shards and write phi's --mesh FASTA and report; with
+    --device cuda and fewer cards than N the CLI still refuses, with
+    [E::main], and writes no FASTA."""
+    from phi_tpu.cli import main as jax_main
     from phi_tpu_torch.cli import main
-    rc = main(["-g", "g.gfa", "-r", "r.fa", "-o", str(tmp_path / "o.fa"),
-               "--device", "cpu"] + flag)
-    assert rc == 1
-    assert "[E::main] --mesh is not yet ported to phi_tpu_torch" in \
-        capsys.readouterr().err
+    from phi_tpu_torch.sketch import kernels
+    gfa_path, reads_path = _mosaic(tmp_path)
+    base = ["-g", gfa_path, "-r", reads_path, "-R", "5"]
+    if not torch.cuda.is_available():
+        out = tmp_path / "cuda.fa"
+        assert main(base + ["-o", str(out), "--device", "cuda"] + flag) == 1
+        assert "[E::main]" in capsys.readouterr().err
+        assert not out.exists()
+    assert jax_main(base + ["-o", str(tmp_path / "jax.fa")] + flag) == 0
+    want = capsys.readouterr().err
+    prev = kernels.SUPER_BLOCKS
+    kernels.SUPER_BLOCKS = 2  # a small join row: results do not depend on it
+    try:
+        rc = main(base + ["-o", str(tmp_path / "port.fa"), "--device",
+                          "cpu"] + flag)
+    finally:
+        kernels.SUPER_BLOCKS = prev
+    got = capsys.readouterr().err
+    assert rc == 0, got[-2000:]
+    with open(tmp_path / "jax.fa", "rb") as a, \
+            open(tmp_path / "port.fa", "rb") as b:
+        assert a.read() == b.read()
+
+    def report(err):
+        return [ln for ln in err.splitlines()
+                if ln.startswith(("Recombin", "[Haplotypes:"))]
+    assert report(got) == report(want) and report(got)
