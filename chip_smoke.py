@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (phi_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase15 LENGTH   # phase 15 alone at 49 x LENGTH
 
 Phases, in order; any failure exits non-zero:
   0. the native host library, then the card (nvidia-smi name and power
@@ -102,12 +103,30 @@ Phases, in order; any failure exits non-zero:
      exits 1 with [E::main] naming it and writes no FASTA, and
      `PHI_TPU_DEVICE_READ_SKETCH=1 python -m phi_tpu_torch.eval.throughput
      --mbases 64 --repeats 5` reports the device sketch's bases/s.
-Phases 4-14 set every kernel's launch count to 0 just before each run and
-read them just after; the kernels JSON adds the launches of phase 13 and
-of phase 14's mesh run (14b) to those of the phase that first runs each
-kernel. The second-to-last line is the
+ 15. chromosome scale, the JAX package's chromosome46 configuration: (a)
+     49 haplotypes x 46 Mbp, 2x reads, seed 0, its build's wall; (b)
+     eval.onchip.run on it, cold then warm, at -k 31 -w 25 -R 100: every
+     run rows3 only, more than one finalize chunk at the default chunk,
+     on cuda, within 0.1% edit distance of the truth; the record, the
+     hits, the chunks, the certified flag and gap, the recombinations
+     against the 2 true breaks, each run's launches and peak device
+     memory, and the card's busy share (a third run under torch.profiler,
+     phi_tpu_torch.trace's method); (c) the warm run's first solve again
+     with PHI_TPU_STREAM_W=0 and =1: M, ends and sweeps bit-equal (unit
+     weights), both times and peaks; (d) the warm run's join again with
+     PHI_TPU_FIN_CHUNK=2^24, and phase 4's at the default chunk and at
+     2^20: the DeviceOcc columns array-equal across chunk sizes; (e) the
+     memory model (eval.hbm_budget) beside the measured peaks of phases
+     4, 6 and 15, with their ratio (logged, not a failure).
+Phases 4-15 set every kernel's launch count to 0 just before each run and
+read them just after; the kernels JSON adds the launches of phase 13, of
+phase 14's mesh run (14b) and of phase 15's runs to those of the phase
+that first runs each kernel. The second-to-last line is the
 kernels JSON, the last the device JSON. Instances are generated from a
-seed into phi_tpu_torch/_build/scale/.
+seed into phi_tpu_torch/_build/scale/; the two largest by child
+processes, phase 6's started with the script and phase 15's once phase
+6's is done, which the script waits for where it needs them and ends if
+it stops early.
 """
 
 from __future__ import annotations
@@ -1205,7 +1224,265 @@ def phase14(big, chrom, small, dev, main_fa: str, main_report, small_fa,
     return 0
 
 
-def main() -> int:
+# The two largest instances, built in child processes (each takes minutes
+# of host time) while the phases before them run: (n_haps, length,
+# coverage) of phases 6 and 15.
+CHROM200 = (4, 200_000_000, 1.0)
+CHROM46 = (49, 46_000_000, 2.0)
+BUILDS: dict = {}
+
+
+def start_build(shape) -> None:
+    """Start a child process that builds eval.build_instance(*shape) into
+    the script's instance cache and prints its wall."""
+    code = ("import json, time\n"
+            "t = time.time()\n"
+            "from phi_tpu_torch.eval import build_instance\n"
+            f"build_instance({shape[0]}, {shape[1]}, coverage={shape[2]})\n"
+            "print(json.dumps({'wall': time.time() - t}))\n")
+    BUILDS[shape] = subprocess.Popen(
+        [sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def finish_build(shape):
+    """Wait for shape's build; returns (paths, the child's wall s, s this
+    process waited for it). Raises if the child failed."""
+    t0 = time.time()
+    proc = BUILDS.pop(shape)
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"building instance {shape} failed "
+                           f"({proc.returncode}): {err[-2000:]}")
+    from phi_tpu_torch.eval import build_instance
+    paths = build_instance(shape[0], shape[1], coverage=shape[2])
+    return paths, json.loads(out)["wall"], time.time() - t0
+
+
+def stop_builds() -> None:
+    """End every build child still running (the script failed early)."""
+    for proc in BUILDS.values():
+        proc.kill()
+        proc.communicate()
+    BUILDS.clear()
+
+
+def model_line(label: str, model: dict, peak: int) -> str:
+    """The memory model's total beside a measured peak, with their ratio
+    and the model's stage sums."""
+    return (f"{label}: memory model {model['total_bytes']} B (anchors "
+            f"{model['stage_bytes']['anchors']} B, solve "
+            f"{model['stage_bytes']['solve']} B, streamed W "
+            f"{model['stream_w']}), measured peak {peak} B, model / peak "
+            f"{model['total_bytes'] / peak:.3f} ({CARD})")
+
+
+def same_occ(a, b) -> bool:
+    """Two DeviceOcc with array-equal columns, in order, and equal stats."""
+    import numpy as np
+    import torch
+    return (all(torch.equal(x, y) for x, y in (
+        (a.dev_s, b.dev_s), (a.dev_span, b.dev_span), (a.dev_id, b.dev_id),
+        (a.dev_hap, b.dev_hap)))
+        and (a.n_occ, a.n_model, a.filtered, a.max_span, a.n_hits)
+        == (b.n_occ, b.n_model, b.filtered, b.max_span, b.n_hits)
+        and np.array_equal(a.per_hap_anchors, b.per_hap_anchors))
+
+
+def phase15(dev, big, g49, launches, models, shape=CHROM46) -> int:
+    """Phase 15: the JAX package's chromosome46 configuration (49 walks x
+    46 Mbp, 2x reads, seed 0, -k 31 -w 25 -R 100; `shape` sets another
+    length) through eval.onchip.run on `dev`; (c) the streamed solve and
+    (d) the chunked filter held against the materialized solve and other
+    chunk sizes; (e) the memory model beside the peaks of phases 4 and 6
+    (`models`: label -> (model, peak)) and this one. Adds the runs'
+    launches to `launches`. Returns 0, or 1 after a failure line."""
+    import numpy as np
+    import torch
+    from phi_tpu_torch import pipeline
+    from phi_tpu_torch.anchors import device as danchors
+    from phi_tpu_torch.eval import onchip
+    from phi_tpu_torch.eval.hbm_budget import budget_of_run
+    from phi_tpu_torch.io.reads import load_read_batch
+    t15 = time.time()
+
+    # 15a: the instance, built by a child process meanwhile
+    paths, built, waited = finish_build(shape)
+    log(f"phase 15a: instance {shape} (haplotypes, length, coverage): "
+        f"built in {built:.3f} s by a child process; waited {waited:.3f} "
+        f"s for it ({CARD})")
+
+    # 15b: eval.onchip.run, cold then warm; each run counted, and the
+    # warm run's first solver tables and join inputs kept (only the
+    # current run's: the runner frees a run's device handles before the
+    # next)
+    runs, cur = [], {}
+    real_run, real_solve = pipeline.run_pipeline, pipeline.solve_dp
+    real_join = pipeline.join_anchors_device
+
+    def run_counted15(*args, **kwargs):
+        cur.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.time()
+        r = real_run(*args, **kwargs)
+        torch.cuda.synchronize()
+        runs.append((time.time() - t0, read_launches(),
+                     torch.cuda.max_memory_allocated()))
+        cur["result"] = r
+        return r
+
+    def solve_kept(t, *args, **kwargs):
+        cur.setdefault("tables", (t, args))
+        return real_solve(t, *args, **kwargs)
+
+    def join_kept(*args, **kwargs):
+        cur["join"] = (args, kwargs)
+        return real_join(*args, **kwargs)
+
+    pipeline.run_pipeline, pipeline.solve_dp = run_counted15, solve_kept
+    pipeline.join_anchors_device = join_kept
+    try:
+        rec = onchip.run(*shape[:2], shape[2], 0, runs=2, lagrangian=8,
+                         device=dev)
+    finally:
+        pipeline.run_pipeline, pipeline.solve_dp = real_run, real_solve
+        pipeline.join_anchors_device = real_join
+    log(f"phase 15b eval.onchip record: {json.dumps(rec)}")
+    r = cur["result"]
+    occ = r.anchors.device_occ
+    for i, (wall, n, peak) in enumerate(runs):
+        log(f"phase 15b run {i} ({'cold' if i == 0 else 'warm'}): wall "
+            f"{wall:.3f} s, launches {json.dumps(n)}, peak device memory "
+            f"{peak} B ({CARD})")
+        if n["rows3"] <= 0 or n["rows2"] or n["rows"] or n["seq"]:
+            return fail(f"phase 15b run {i}: launches {json.dumps(n)} (rows3 "
+                        f"only)")
+        launches["rows3"] += n["rows3"]
+    truth = read_truth(paths)
+    certified = report("phase 15b warm", r, runs[-1][0], runs[-1][1],
+                       runs[-1][2], truth, 100.0)
+    log(f"phase 15b: {occ.n_hits} join hits in {occ.n_chunks} finalize "
+        f"chunks of {danchors.fin_chunk()}, {occ.n_occ} retained; walks of "
+        f"{r.graph.walk_mat.shape[1]} positions; certified {certified}, gap "
+        f"{rec['gap']}; {rec['recombinations']} recombinations against "
+        f"{rec['true_breaks']} true breaks; edit distance "
+        f"{rec['edit_distance']}; timings keys {sorted(r.timings)}")
+    if len(runs) != 2 or not on_cuda(r) or occ is None:
+        return fail("phase 15b: not two runs of the device path on cuda")
+    if occ.n_chunks <= 1:
+        return fail(f"phase 15b: {occ.n_hits} hits took {occ.n_chunks} "
+                    f"finalize chunk at the default chunk")
+    if rec["edit_distance"] > shape[1] // 1000:
+        return fail(f"phase 15b: edit distance {rec['edit_distance']} to "
+                    f"the truth (over 0.1% of the length)")
+    models[f"phase 15 ({shape[1]} bp)"] = (
+        budget_of_run(r, 31, 25), max(p for _, _, p in runs))
+
+    # 15c: the warm run's first solve again, materialized and streamed
+    tables, (max_sweeps, _) = cur["tables"]
+    sols = {}
+    try:
+        for mode in ("0", "1"):
+            os.environ["PHI_TPU_STREAM_W"] = mode
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            sols[mode] = pipeline.solve_dp(tables, max_sweeps, dev)
+            torch.cuda.synchronize()
+            log(f"phase 15c PHI_TPU_STREAM_W={mode}: solve_dp "
+                f"{time.time() - t0:.3f} s, {sols[mode][2]} sweeps, "
+                f"{tables.n_layers} layers, peak device memory "
+                f"{torch.cuda.max_memory_allocated()} B ({CARD})")
+    finally:
+        os.environ.pop("PHI_TPU_STREAM_W", None)
+    (m0, e0, s0, _), (m1, e1, s1, _) = sols["0"], sols["1"]
+    equal = torch.equal(m0.M, m1.M) and np.array_equal(e0, e1) and s0 == s1
+    log(f"phase 15c: streamed M [{tuple(m1.M.shape)}], ends and sweeps "
+        f"bit-equal to the materialized solve's: {equal}")
+    if not equal:
+        return fail("phase 15c: the streamed solve differs")
+    del sols, m0, m1, tables
+
+    # 15d: the filter at other chunk sizes: 2^24 on these hits, 2^20 on
+    # phase 4's (one chunk by default)
+    jargs, jkw = cur["join"]
+    seqs4 = [g49.walk_seq_codes(h) for h in range(g49.num_walks)]
+    reads4 = load_read_batch(big["reads"])
+    sp4 = pipeline.read_spectrum(reads4, 31, 25)
+    cases = ((f"{shape[0]} x {shape[1]} bp", jargs, jkw, occ, 1 << 24),
+             ("49 x 5 Mbp", (g49, seqs4, 31, 25, *sp4, 1.0), dict(device=dev),
+              None, 1 << 20))
+    try:
+        for label, a, kw, want, chunk in cases:
+            os.environ.pop("PHI_TPU_FIN_CHUNK", None)
+            if want is None:
+                want = danchors.join_anchors_device(*a, **kw)[1]
+            os.environ["PHI_TPU_FIN_CHUNK"] = str(chunk)
+            t0 = time.time()
+            got = danchors.join_anchors_device(*a, **kw)[1]
+            torch.cuda.synchronize()
+            same = same_occ(got, want)
+            log(f"phase 15d {label}: {want.n_hits} hits, {want.n_chunks} "
+                f"chunk(s) by default and {got.n_chunks} of {chunk} "
+                f"({time.time() - t0:.3f} s); DeviceOcc columns array-equal: "
+                f"{same}")
+            if not same or got.n_chunks == want.n_chunks:
+                return fail(f"phase 15d {label}: the filter differs across "
+                            f"chunk sizes, or took as many chunks")
+            del got, want
+    finally:
+        os.environ.pop("PHI_TPU_FIN_CHUNK", None)
+
+    # 15b, the card's busy share: the warm run once more under the profiler
+    # (phi_tpu_torch.trace's method), over the unprofiled warm wall
+    cur.clear()
+    del r, occ
+    from phi_tpu_torch.config import Options
+    out = os.path.join(os.path.dirname(paths["gfa"]), "inferred_prof.fa")
+    busy = profiled_busy(lambda: pipeline.run_pipeline(
+        paths["gfa"], paths["reads"], out, Options(lagrangian_rounds=8),
+        device=dev))
+    log(f"phase 15b: card busy {busy:.3f} s of the profiled run, busy share "
+        f"{busy / runs[-1][0]:.4f} of the warm wall {runs[-1][0]:.3f} s "
+        f"({CARD})")
+
+    # 15e: the memory model against the measured peaks
+    for label, (model, peak) in models.items():
+        log("phase 15e " + model_line(label, model, peak))
+    log(f"phase 15: {time.time() - t15:.3f} s in all ({CARD})")
+    return 0
+
+
+def phase15_alone(dev, shape) -> int:
+    """`--phase15 LENGTH`: phase 4's configuration once cold and once warm
+    (its memory model and graph, which phase 15 reads), then phase 15 at
+    49 walks x LENGTH. Prints no kernels or device JSON."""
+    from phi_tpu_torch.eval import build_instance
+    from phi_tpu_torch.eval.hbm_budget import budget_of_run
+    big = build_instance(49, 5_000_000, coverage=1.0)
+    out = os.path.join(os.path.dirname(big["gfa"]), "port_k31_alone.fa")
+    flags = ["-k", "31", "-w", "25", "-R", "100"]
+    for run in ("cold", "warm"):
+        r, wall, n, peak = run_counted(big, out, flags, dev)
+        report(f"phase 4 k=31 {run}", r, wall, n, peak, read_truth(big),
+               100.0)
+    launches = dict.fromkeys(KERNELS, 0)
+    rc = phase15(dev, big, r.graph, launches,
+                 {"phase 4": (budget_of_run(r, 31, 25), peak)}, shape)
+    log(f"phase 15 alone at {shape}: exit {rc}, launches "
+        f"{json.dumps(launches)}")
+    return rc
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    alone = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--phase15" or not argv[1].isdigit():
+            return fail("usage: python3 chip_smoke.py [--phase15 LENGTH]")
+        alone = (CHROM46[0], int(argv[1]), CHROM46[2])
     if not os.path.isdir(os.path.join(ROOT, "phi_tpu_torch")):
         return fail("phi_tpu_torch/ is not beside chip_smoke.py")
     sys.path.insert(0, ROOT)
@@ -1238,6 +1515,11 @@ def main() -> int:
         return fail("native host library unavailable (make -C native)")
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
+    # phase 15's instance starts building once phase 6's is done: the two
+    # builds side by side slow the one phase 6 waits for
+    start_build(alone or CHROM200)
+    log(f"building the instance {alone or CHROM200} (haplotypes, length, "
+        f"coverage) in a child process meanwhile")
 
     # --- phase 1: build ---
     from phi_tpu_torch.sketch import kernels as tk
@@ -1254,6 +1536,9 @@ def main() -> int:
             f"blocks per SM")
         if not used or spills(spill):
             return fail(f"ptxas: {n} spills registers or has no report")
+
+    if alone:
+        return phase15_alone(dev, alone)
 
     # --- phase 2: each kernel vs its twin at the production shape ---
     sb = tk.SUPER_BLOCKS
@@ -1363,7 +1648,8 @@ def main() -> int:
     log(f"instance 49 x 5 Mbp, 1x: ready in {time.time() - t0:.1f} s "
         f"({card})")
     truth = read_truth(big)
-    launches = {}
+    from phi_tpu_torch.eval.hbm_budget import budget_of_run
+    launches, models = {}, {}
     for phase, k, kern in ((4, 31, "rows3"), (5, 35, "rows3w")):
         flags = ["-k", str(k), "-w", "25", "-R", "100"]
         for run in ("cold", "warm"):
@@ -1382,6 +1668,7 @@ def main() -> int:
             if phase == 4 and run == "warm":
                 main_edit = edit_stats(r.sequence, truth).edit_distance
                 main_report = (r.report_segments, r.recombination_count)
+                models["phase 4"] = (budget_of_run(r, 31, 25), peak)
         for args in instance_batches(r, k, 25, dev, False):
             check(kern, args, k, 25, tk.block_cap(25))
         log(f"{kern} equal to twin on the 49 x 5 Mbp instance's first 2 "
@@ -1389,16 +1676,18 @@ def main() -> int:
 
     # --- phase 6: the v2 mixed route at chromosome length ---
     from phi_tpu_torch.ops.search import CUCKOO_MAX_KEYS
-    t0 = time.time()
-    chrom = build_instance(4, 200_000_000, coverage=1.0)
-    log(f"instance 4 x 200 Mbp, 1x: ready in {time.time() - t0:.1f} s "
-        f"({card})")
+    chrom, built, waited = finish_build(CHROM200)
+    start_build(CHROM46)
+    log(f"instance 4 x 200 Mbp, 1x: built in {built:.3f} s by a child "
+        f"process started with the script; waited {waited:.3f} s for it "
+        f"({card}); building {CHROM46} in a child process meanwhile")
     out = os.path.join(os.path.dirname(chrom["gfa"]), "port.fa")
     r, wall, n, peak = run_counted(chrom, out,
                                    ["-k", "31", "-w", "25", "-R", "100"], dev)
     certified = report("phase 6 v2 mixed", r, wall, n, peak,
                        read_truth(chrom), 100.0)
     launches["rows2"] = n["rows2"]
+    models["phase 6"] = (budget_of_run(r, 31, 25), peak)
     if r.anchors.spectrum_size <= CUCKOO_MAX_KEYS:
         return fail(f"spectrum {r.anchors.spectrum_size} keys fits the "
                     f"cuckoo table: the instance does not reach v2 mixed")
@@ -1648,6 +1937,10 @@ def main() -> int:
                launches):
         return 1
 
+    # --- phase 15: chromosome scale, 49 x 46 Mbp ---
+    if phase15(dev, big, save_run.graph, launches, models):
+        return 1
+
     replaces = {"rows3": 1000, "rows3w": 1340, "rows2": 688, "rows": 237,
                 "seq": 57}
     print(json.dumps({"kernels": [{
@@ -1664,4 +1957,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_builds()
+    sys.exit(code)

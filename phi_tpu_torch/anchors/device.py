@@ -16,7 +16,9 @@ The port of `phi_tpu/anchors/device.py`:
   2. the filter groups occurrences by (k-mer, vertex-run identity) through
      a 2x32-bit polynomial prefix hash over the walks, resolves single-run
      k-mers by a min == max uniformity test, and counts the remaining
-     ambiguous groups with the ownership-table loop;
+     ambiguous groups with the ownership-table loop; it reads the hits in
+     chunks of PHI_TPU_FIN_CHUNK (2^26) hits, so its temporaries stay a
+     chunk's size at chromosome scale (one chunk below it);
   3. the retained multi-vertex occurrences stay on the device for the
      solver (DeviceOcc) and are copied to the host for decode.
 
@@ -37,6 +39,7 @@ launch among them, raises. The 32-bit hashes run in int64 lanes masked to
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 
 import numpy as np
@@ -59,6 +62,9 @@ _POLY1 = 0x9E3779B1
 _POLY2 = 0x85EBCA77
 _MAX_SPAN = 64            # pw table size; packed spans are <= 63
 _OWNER_ROUNDS = 16        # ownership-loop cap (expected ~3-4 rounds)
+# hits per pass of the threshold filter: each pass holds a handful of
+# chunk-length int64 columns (eval.hbm_budget), ~4 GB at 2^26
+FIN_CHUNK = 1 << 26
 
 
 def _fallback(msg: str) -> None:
@@ -140,6 +146,7 @@ class DeviceOcc:
     per_hap_anchors: np.ndarray
     max_span: int = 0        # max end - start among retained occurrences
     n_hits: int = 0          # join hits the filter read (all routes)
+    n_chunks: int = 1        # passes of fin_chunk() hits the filter took
 
     def materialize(self):
         """(occ_hap, occ_start, occ_end, occ_kmer) int32 host arrays."""
@@ -216,6 +223,16 @@ def pack_batch(seqs, cumlens, batch, row_lanes: int, S_cap: int | None):
             np.array([max(r[0], 0) for r in batch], np.int32))
 
 
+def hit_buffer_len(windows: int, w: int, super_blocks: int = SUPER_BLOCKS,
+                   rows_per_call: int = ROWS) -> int:
+    """CAP, the hit buffers' length: the expected minimizers of `windows`
+    windows with headroom (~2.6/(w+1) a window), plus one batch's hits so
+    that a clamped append never overwrites live hits before the overflow
+    check."""
+    return int(windows * 2.6 / (w + 1)) + hit_cap(w, super_blocks,
+                                                 rows_per_call)
+
+
 def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
                         k: int, w: int, sp_hi, sp_lo, threshold: float,
                         *, device, rows_per_call: int | None = None,
@@ -269,8 +286,7 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
     C = block_cap(w)
     emitcap = emit_cap(w, SB)
     cap_total = hit_cap(w, SB, R)
-    est_windows = sum(r[2] for r in rows)
-    CAP = int(est_windows * 2.6 / (w + 1)) + cap_total
+    CAP = hit_buffer_len(sum(r[2] for r in rows), w, SB, R)
     n_batches = -(-len(rows) // R)
     padded = rows + [(-1, 0, 0, 0)] * (n_batches * R - len(rows))
 
@@ -344,22 +360,42 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
     return per_hap_min, occ
 
 
-def _group_hashes(se, kid, hap, walk_mat):
+def fin_chunk() -> int:
+    """Hits per pass of the threshold filter: PHI_TPU_FIN_CHUNK, else
+    FIN_CHUNK."""
+    return int(os.environ.get("PHI_TPU_FIN_CHUNK", FIN_CHUNK))
+
+
+def _group_hashes(se, kid, hap, ph, pw, Pp1: int):
     """Per-occurrence (start, span, g1, g2): g1/g2 are 32-bit hashes of the
-    group (k-mer id, vertex run walk[hap][s..s+span])."""
-    Pp1 = walk_mat.shape[1] + 1
+    group (k-mer id, vertex run walk[hap][s..s+span]), from the flattened
+    prefix hashes ph (two [H * Pp1] tables) and the power tables pw."""
     s = se >> 6
     span = se & 63
     i_lo = hap * Pp1 + s
     i_hi = i_lo + span + 1
-    pw1, pw2 = (torch.from_numpy(p).to(se.device) for p in pw_tables())
-    sp = (span + 1).clamp(max=pw1.shape[0] - 1)
+    sp = (span + 1).clamp(max=pw[0].shape[0] - 1)
     gs = []
-    for poly, pw, mix in ((_POLY1, pw1, 0x27D4EB2F), (_POLY2, pw2, 0x165667B1)):
-        ph = build_ph(walk_mat, poly).reshape(-1)
-        rh = (ph[i_hi] - mul32(ph[i_lo], pw[sp])) & _M32
+    for phi, pwi, mix in ((ph[0], pw[0], 0x27D4EB2F),
+                          (ph[1], pw[1], 0x165667B1)):
+        rh = (phi[i_hi] - mul32(phi[i_lo], pwi[sp])) & _M32
         gs.append(_fmix32(rh ^ _fmix32(mul32(kid, mix))))
     return s, span, gs[0], gs[1]
+
+
+def _kmer_stats(kid, g1, g2, acc) -> None:
+    """Pass 1 of the filter over one chunk: adds its occurrences to the
+    per-k-mer acc = (total, min and max of g1 ^ g2, min and max of
+    g1 + g2)."""
+    ktot, umin, umax, vmin, vmax = acc
+    ktot.index_add_(0, kid, torch.ones_like(kid))
+    u = g1 ^ g2
+    umin.scatter_reduce_(0, kid, u, "amin")
+    umax.scatter_reduce_(0, kid, u, "amax")
+    del u
+    v = (g1 + g2) & _M32
+    vmin.scatter_reduce_(0, kid, v, "amin")
+    vmax.scatter_reduce_(0, kid, v, "amax")
 
 
 def _owners(ag1, ag2, aid, n_amb: int, th: float, kbad_uni):
@@ -393,43 +429,87 @@ def _owners(ag1, ag2, aid, n_amb: int, th: float, kbad_uni):
 
 def _finalize(se, kid, hap, walk_mat, threshold: float, Ksp: int,
               H: int) -> DeviceOcc | None:
-    """The reference's threshold filter over all hits (one pass; the hits
-    of the configurations this package runs fit the device at once); None
-    when the ownership loop leaves groups unresolved."""
+    """The reference's threshold filter over all hits, in passes over
+    chunks of fin_chunk() hits (one chunk below it), as the reference's
+    _finalize_chunked runs it:
+      pass 1: per k-mer occurrence totals and the min/max of two group
+              hashes (a k-mer whose occurrences all hash alike is one
+              group);
+      then:   the ambiguous k-mers (hot and not uniform), their occurrence
+              count exact from the totals;
+      pass 2a: gather the ambiguous occurrences' hashes into buffers of
+              exactly that size;
+      then:   the ownership loop, once, over all of them;
+      pass 2b: compact each chunk's retained multi-vertex occurrences, in
+              chunk order.
+    None when the ownership loop leaves groups unresolved."""
     dev = se.device
+    n = se.shape[0]
+    ch = max(1, min(fin_chunk(), n))
+    chunks = [slice(c, c + ch) for c in range(0, max(n, 1), ch)]
     th = float(np.float32(threshold * H))
-    s, span, g1, g2 = _group_hashes(se, kid, hap, walk_mat)
-    u = g1 ^ g2
-    v = (g1 + g2) & _M32
+    ph = [build_ph(walk_mat, poly).reshape(-1) for poly in (_POLY1, _POLY2)]
+    pw = [torch.from_numpy(p).to(dev) for p in pw_tables()]
+    Pp1 = walk_mat.shape[1] + 1
 
-    def reduce(init, vals, how):
-        out = torch.full((Ksp,), init, dtype=torch.int64, device=dev)
-        return out.scatter_reduce_(0, kid, vals, how)
+    def hashes(c):
+        return _group_hashes(se[c], kid[c], hap[c], ph, pw, Pp1)[2:]
 
-    ktot = torch.zeros(Ksp, dtype=torch.int64, device=dev)
-    ktot.index_add_(0, kid, torch.ones_like(kid))
-    uniform = (reduce(_M32, u, "amin") == reduce(0, u, "amax")) \
-        & (reduce(_M32, v, "amin") == reduce(0, v, "amax"))
+    def full(init):
+        return torch.full((Ksp,), init, dtype=torch.int64, device=dev)
+
+    acc = (full(0), full(_M32), full(0), full(_M32), full(0))
+    for c in chunks:
+        _kmer_stats(kid[c], *hashes(c), acc)
+    ktot, umin, umax, vmin, vmax = acc
+    uniform = (umin == umax) & (vmin == vmax)
+    del umin, umax, vmin, vmax
     hot = ktot.float() >= th
     k_amb = ~uniform & hot
+    # sized exactly from the totals: an estimate here once sent whole
+    # real-data runs to the host path in the reference
     n_amb = int(ktot[k_amb].sum())
-    amb = k_amb[kid]
-    kbad, unresolved = _owners(g1[amb], g2[amb], kid[amb], n_amb, th,
-                               uniform & hot)
+    ag1, ag2, aid = (torch.empty(n_amb, dtype=torch.int64, device=dev)
+                     for _ in range(3))
+    off = 0
+    for c in chunks:
+        amb = k_amb[kid[c]]
+        m = int(amb.sum())
+        if m:
+            g1, g2 = hashes(c)
+            ag1[off:off + m] = g1[amb]
+            ag2[off:off + m] = g2[amb]
+            aid[off:off + m] = kid[c][amb]
+            del g1, g2
+        off += m
+    kbad, unresolved = _owners(ag1, ag2, aid, n_amb, th, uniform & hot)
+    del ag1, ag2, aid
     if unresolved:
         _fallback(f"ownership loop unresolved after {_OWNER_ROUNDS} rounds")
         return None
-    keep = ~kbad[kid]
-    per_hap = torch.bincount(hap[keep], minlength=H)
-    multi = keep & (span > 0)
+    per_hap = torch.zeros(H, dtype=torch.int64, device=dev)
     kmulti = torch.zeros(Ksp, dtype=torch.bool, device=dev)
-    kmulti[kid[multi]] = True
-    n_occ = int(multi.sum())
+    multis = []
+    for c in chunks:
+        keep = ~kbad[kid[c]]
+        per_hap += torch.bincount(hap[c][keep], minlength=H)
+        multi = keep & ((se[c] & 63) > 0)
+        kmulti[kid[c][multi]] = True
+        multis.append(multi)
+    n_occ = int(sum(int(m.sum()) for m in multis))
+    cols = [torch.empty(n_occ, dtype=torch.int64, device=dev)
+            for _ in range(4)]
+    off = 0
+    for c, multi in zip(chunks, multis):
+        m = int(multi.sum())
+        for col, src in zip(cols, (se[c] >> 6, se[c] & 63, kid[c], hap[c])):
+            col[off:off + m] = src[multi]
+        off += m
+    o_s, o_span, o_id, o_hap = cols
     return DeviceOcc(
-        dev_s=s[multi], dev_span=span[multi], dev_id=kid[multi],
-        dev_hap=hap[multi],
+        dev_s=o_s, dev_span=o_span, dev_id=o_id, dev_hap=o_hap,
         dev_w=torch.ones(n_occ, dtype=torch.float32, device=dev),
         n_occ=n_occ, n_model=int(kmulti.sum()),
         filtered=int((kbad & (ktot > 0)).sum()),
         per_hap_anchors=per_hap.cpu().numpy().astype(np.int64),
-        max_span=int(span[multi].max()) if n_occ else 0)
+        max_span=int(o_span.max()) if n_occ else 0, n_chunks=len(chunks))

@@ -45,7 +45,7 @@ def branch_and_bound(graph, anchors, opt, tol: float,
                      incumbent=None,
                      max_nodes: int = 48, max_seconds: float = 120.0,
                      ascent_rounds: int = 4,
-                     solve_and_decode=None, layers=None, device="cpu",
+                     solve_and_decode=None, layers=None, device="cuda",
                      mesh=None):
     """Close (or tighten) the duality gap exactly.
 
@@ -55,9 +55,12 @@ def branch_and_bound(graph, anchors, opt, tol: float,
     DecodeResult known so far (upper bound). Returns
     (best DecodeResult, certified_bound); on budget exhaustion the bound
     is the best proven so far (still valid). device: where each node's DP
-    runs (mesh: over which it is sharded)."""
+    runs, cuda unless the caller asks for the CPU (mesh: over which it is
+    sharded)."""
     from phi_tpu_torch.pipeline import _solve_and_decode as _sad
+    from phi_tpu_torch.pipeline import resolve_device
     from phi_tpu_torch.solve.prep import build_solver_tables, solver_layers
+    device = resolve_device(device)
     if layers is None:
         layers = solver_layers(graph, opt.k)
 

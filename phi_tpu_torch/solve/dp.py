@@ -13,11 +13,18 @@ instance's own (no padding to buckets). The bracket solve (solve_dp_both),
 for spans past MAX_LAYERS straddle layers, runs the sweep with no layers
 (L = 0) twice: once with the search charge S and once with the optimistic
 charge S := B, whose value is the bound.
+
+W [L, H, P] is the solve's largest array. Where the memory model says the
+materialized solve would not fit the card's free memory (stream_w), the
+sweep reads a StreamedW instead, which rebuilds each layer from the
+occurrence columns when it is read: the same values, L scatters and
+cumsums more per sweep, and no stack.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -33,34 +40,79 @@ _INF = float("inf")
 LAST_TIMINGS: dict[str, float] = {}
 
 
+class StreamedW:
+    """The straddle stack W [L, H, P] of build_sbw without the stack:
+    W[j] is rebuilt from the occurrence columns at each use, by build_sbw's
+    own scatter and cumsum, so it holds the same values (bit-equal where
+    every scatter sum is exact, as at unit weights; a CUDA index_add_ of
+    fractional weights adds in no fixed order). solve_exact reads it as it
+    reads a materialized W: W.shape[0] layers, W[j] one [H, P] plane."""
+
+    def __init__(self, occ_hap, occ_start, occ_span, occ_w, H: int, P: int,
+                 L: int):
+        self.shape = (L, H, P)
+        self.end = occ_hap * P + occ_start + occ_span
+        self.lo = occ_hap * P + occ_start + 1
+        self.span = occ_span
+        self.w = occ_w
+
+    def __getitem__(self, j: int) -> torch.Tensor:
+        L, H, P = self.shape
+        size = H * P + L + 2
+        wsel = torch.where(self.span >= j + 2, self.w, 0.0)
+        diff = torch.zeros(size, dtype=torch.float32, device=self.w.device)
+        diff.index_add_(0, (self.lo + j).clamp(max=size - 1), wsel)
+        diff.index_add_(0, self.end, -wsel)
+        return torch.cumsum(diff[:H * P].reshape(H, P), 1)
+
+
 def build_sbw(occ_hap, occ_start, occ_span, occ_w, H: int, P: int, L: int):
     """S, B (f32 [H, P]) and the straddle stack W (f32 [L, H, P]) from the
     occurrence columns: B[h,p] = weight ending <= p, S[h,p] = weight
     starting < p, W[j,h,p] = weight with start < p-j <= p < end."""
     dev = occ_w.device
     f32 = torch.float32
-    end = occ_start + occ_span
-    flat_end = occ_hap * P + end
-    lo_base = occ_hap * P + occ_start + 1
+    layers = StreamedW(occ_hap, occ_start, occ_span, occ_w, H, P, L)
     size = H * P + L + 2
 
     def prefix(diff):
         return torch.cumsum(diff[:H * P].reshape(H, P), 1)
 
     B = prefix(torch.zeros(size, dtype=f32, device=dev)
-               .index_add_(0, flat_end, occ_w))
+               .index_add_(0, layers.end, occ_w))
     start_next = occ_start + 1
     s_idx = torch.where(start_next < P, occ_hap * P + start_next, size - 1)
     S = prefix(torch.zeros(size, dtype=f32, device=dev)
                .index_add_(0, s_idx, occ_w))
     W = torch.empty((L, H, P), dtype=f32, device=dev)
     for j in range(L):
-        wsel = torch.where(occ_span >= j + 2, occ_w, 0.0)
-        diff = torch.zeros(size, dtype=f32, device=dev)
-        diff.index_add_(0, (lo_base + j).clamp(max=size - 1), wsel)
-        diff.index_add_(0, flat_end, -wsel)
-        W[j] = prefix(diff)
+        W[j] = layers[j]
     return S, B, W
+
+
+def stream_w(H: int, P: int, L: int, n_occ: int, device) -> bool:
+    """Rebuild W's layers in every sweep (StreamedW) instead of holding the
+    [L, H, P] stack? PHI_TPU_STREAM_W=1/0 forces the choice on any device.
+    Otherwise the CPU never streams; on a card the solve streams when the
+    memory model's materialized solve (S, B, M, the sweep's working set
+    and W) exceeds the free device memory: what CUDA reports free
+    plus what the caching allocator holds reserved but unallocated.
+    PHI_TPU_STREAM_W_GB, when set, replaces that with a fixed cap on the
+    stack alone (the reference's rule)."""
+    forced = os.environ.get("PHI_TPU_STREAM_W")
+    if forced in ("0", "1"):
+        return forced == "1"
+    device = torch.device(device)
+    if device.type != "cuda":
+        return False
+    cap_gb = os.environ.get("PHI_TPU_STREAM_W_GB")
+    if cap_gb is not None:
+        return L * H * P * 4 > float(cap_gb) * (1 << 30)
+    from phi_tpu_torch.eval.hbm_budget import solve_bytes
+    free = torch.cuda.mem_get_info(device)[0] + (
+        torch.cuda.memory_reserved(device)
+        - torch.cuda.memory_allocated(device))
+    return solve_bytes(H, P, L, n_occ, stream_w=False) > free
 
 
 def _ends(M, B, walk_len):
@@ -73,7 +125,9 @@ def _ends(M, B, walk_len):
 
 def solve_exact(S, B, W, esrc_h, esrc_p, esrc_target, state_vertex,
                 walk_len, R: float, n_vtx: int, max_sweeps: int):
-    """Exact-credit fixpoint: returns (M f32 [H, P], ends f32 [H], sweeps)."""
+    """Exact-credit fixpoint: returns (M f32 [H, P], ends f32 [H], sweeps).
+    W is the materialized stack or a StreamedW: the same sweep reads
+    either, one layer at a time."""
     H, P = S.shape
     L = W.shape[0]
     dev = S.device
@@ -199,7 +253,9 @@ def solve_dp_both(t: SolverTables, max_sweeps: int, device):
 def solve_dp(t: SolverTables, max_sweeps: int, device):
     """Returns (DeviceSolution, ends f32 [H], n_sweeps, dp_objective); the
     objective is both a lower bound on the distinct-k-mer optimum and the
-    value of the decodable relaxed path."""
+    value of the decodable relaxed path. W is materialized, or streamed
+    where stream_w says so; a solve that runs out of memory is not
+    retried streamed."""
     device = torch.device(device)
     LAST_TIMINGS.clear()
     t0 = time.time()
@@ -214,7 +270,11 @@ def solve_dp(t: SolverTables, max_sweeps: int, device):
         oh, os_, osp, ow = state.occ_tensors(
             t.occ_hap, t.occ_start, t.occ_end - t.occ_start, t.occ_weight,
             device)
-    S, B, W = build_sbw(oh, os_, osp, ow, H, P, t.n_layers)
+    L = t.n_layers
+    streamed = stream_w(H, P, L, int(ow.shape[0]), device)
+    S, B, W = build_sbw(oh, os_, osp, ow, H, P, 0 if streamed else L)
+    if streamed:
+        W = StreamedW(oh, os_, osp, ow, H, P, L)
     _sync(device)
     t1 = time.time()
     M, ends_d, n_sweeps = solve_exact(S, B, W, eh, ep, et, sv, wl,

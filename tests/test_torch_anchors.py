@@ -111,3 +111,28 @@ def test_n_walk_raises(tmp_path, capsys):
                                device="cpu") is None
     assert "walk 0 contains non-ACGT bases; host hit path" in \
         capsys.readouterr().err
+
+
+@pytest.mark.parametrize("threshold", [1.0, 0.5])
+def test_chunked_finalize_matches_one_chunk_and_jax(tmp_path, monkeypatch,
+                                                    threshold):
+    """The filter in chunks of 4096 hits (PHI_TPU_FIN_CHUNK, read by both
+    packages): more than one chunk, and the DeviceOcc columns, in order,
+    equal to one chunk's and to phi_tpu's chunked filter (the counterpart
+    of tests/test_device_anchors.py::test_device_anchor_chunked_finalize)."""
+    k, w = 21, 11
+    graph, reads = _instance(tmp_path, n_haps=5, length=12000)
+    spectrum = _spectrum(reads, k, w)
+    seqs = [graph[1].walk_seq_codes(h) for h in range(graph[1].num_walks)]
+    _, one = join_anchors_device(graph[1], seqs, k, w, spectrum[0],
+                                 spectrum[1], threshold, device="cpu",
+                                 rows_per_call=2, super_blocks=2)
+    assert one.n_chunks == 1
+    monkeypatch.setenv("PHI_TPU_FIN_CHUNK", "4096")
+    got = _compare(graph, spectrum, k, w, threshold, 2)
+    assert got.n_hits > 4096 and got.n_chunks == -(-got.n_hits // 4096) > 1
+    for a, b in zip(got.materialize(), one.materialize()):
+        assert np.array_equal(a, b)
+    assert (got.n_occ, got.n_model, got.filtered, got.max_span) == \
+        (one.n_occ, one.n_model, one.filtered, one.max_span)
+    assert np.array_equal(got.per_hap_anchors, one.per_hap_anchors)

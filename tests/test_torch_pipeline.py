@@ -203,6 +203,19 @@ def test_branch_and_bound_matches_jax(tmp_path, case, k, w, R):
     assert got_bound == pytest.approx(want_bound, abs=1e-3)
 
 
+def test_branch_and_bound_defaults_to_the_card():
+    """branch_and_bound runs its nodes on cuda unless the caller asks for
+    the CPU: without a card, a call that names no device fails as every
+    other entry point of the port does, instead of running on the CPU."""
+    import inspect
+    from phi_tpu_torch.solve.bnb import branch_and_bound
+    param = inspect.signature(branch_and_bound).parameters["device"]
+    assert param.default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            branch_and_bound(None, None, Options(), gap_tol(100.0))
+
+
 def _report_lines(stderr: str) -> list[str]:
     return [ln for ln in stderr.splitlines()
             if ln.startswith(("Recombination count:",
