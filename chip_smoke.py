@@ -118,15 +118,38 @@ Phases, in order; any failure exits non-zero:
      2^20: the DeviceOcc columns array-equal across chunk sizes; (e) the
      memory model (eval.hbm_budget) beside the measured peaks of phases
      4, 6 and 15, with their ratio (logged, not a failure).
-Phases 4-15 set every kernel's launch count to 0 just before each run and
+ 16. the ground-truth accuracy chain (eval.groundtruth, floor_diag,
+     merge_gt, plots), run after phase 5 while phase 6's instance builds
+     (16g after phase 15), at the MHC_4 panel's shape: 5 walks x
+     4,920,303 bp (synth_pangenome, seed 0) and two synthetic held-out
+     truths APD and COX (3-break mosaics with private SNPs at 5e-4)
+     under phi_tpu_torch/_build/gt/, the working directory of the phase:
+     (a)
+     each truth's best-single-walk floor (panel_floor_cached, computed by
+     the child that builds the panel, each walk's edit distance timed;
+     read back from its cache); (b) run_grid under subs at 0.1, 0.5, 1,
+     2, 5 and 10x (APD) and 1 and 10x (COX), indel and longread at 1 and
+     10x (APD), 1 seed: every run on cuda with rows3 launches, each
+     cell's edit, floor, recombinations, gap, escalation, wall and peak
+     device memory logged, uncertified cells reported, and at >= 2x the
+     mosaic must beat the floor; (c) a forced escalation (escalate_tol
+     -1): escalated, two runs, every PHI_TPU_* variable as before; (d)
+     floor_diag.diagnose of APD at 10x: the R = 1 oracle's wall and DP
+     solves; (e) the APD 1x subs cell on the CPU: edit, recombinations,
+     gap and reads equal to the card's; (f) each grid written as a shard
+     and merged per error model: the cells, certified and floor counts
+     add up, the six other samples' shards reported missing; (g) phase
+     13b's matrix CSV through read_matrix_csv (its reads, coverages and
+     the 1x edit); no figure is drawn.
+Phases 4-16 set every kernel's launch count to 0 just before each run and
 read them just after; the kernels JSON adds the launches of phase 13, of
-phase 14's mesh run (14b) and of phase 15's runs to those of the phase
-that first runs each kernel. The second-to-last line is the
+phase 14's mesh run (14b) and of phases 15's and 16's runs to those of
+the phase that first runs each kernel. The second-to-last line is the
 kernels JSON, the last the device JSON. Instances are generated from a
-seed into phi_tpu_torch/_build/scale/; the two largest by child
-processes, phase 6's started with the script and phase 15's once phase
-6's is done, which the script waits for where it needs them and ends if
-it stops early.
+seed into phi_tpu_torch/_build/scale/; the two largest and phase 16's
+panel by child processes, phase 6's and phase 16's started with the
+script and phase 15's once phase 6's is done, which the script waits for
+where it needs them and ends if it stops early.
 """
 
 from __future__ import annotations
@@ -1476,6 +1499,356 @@ def phase15_alone(dev, shape) -> int:
     return rc
 
 
+# phase 16's panel: the MHC_4 panel's walk count at the CHM13 MHC
+# haplotype's length (tests/test_eval.py:30), two held-out truths named as
+# two of the reference's assemblies
+GT_WALKS, GT_LENGTH = 5, 4_920_303
+GT_SAMPLES = ("APD", "COX")
+GT_DIR = os.path.join(BUILD, "gt")
+
+
+def gt_build(d: str, n_haps: int = GT_WALKS, length: int = GT_LENGTH
+             ) -> dict:
+    """Phase 16's inputs into d, emptied first, from seed 0: a
+    synth_pangenome panel (1% variant sites, 5% of them indels, 30 bp
+    nodes) as panel.gfa, and for each of GT_SAMPLES a synthetic held-out truth (a 3-break mosaic of
+    the walks with private SNPs at 5e-4, eval.scale's held-out recipe) as
+    {sample}.fasta.gz; then each truth's floor, by panel_floor_cached into
+    d/bench_results/.floors_cache.json (where run_grid reads it from the
+    working directory d), with each walk's edit distance timed. Returns
+    the build's wall and, by sample, the floor and the walks' times."""
+    import gzip
+    import shutil
+    import numpy as np
+    from phi_tpu_torch.eval import edits, groundtruth
+    from phi_tpu_torch.eval.scale import mosaic_target
+    from phi_tpu_torch.eval.synth import synth_pangenome
+    from phi_tpu_torch.graph.pangenome import tensorize
+    from phi_tpu_torch.io.gfa import read_gfa, write_gfa
+    t0 = time.time()
+    # an earlier run's floor cache would be hit and no walk timed; its
+    # shards would be merged again
+    shutil.rmtree(d, ignore_errors=True)
+    rng = np.random.default_rng(0)
+    graph, haps = synth_pangenome(rng, length=length, n_haps=n_haps,
+                                  var_rate=0.01, indel_fraction=0.05)
+    os.makedirs(d)
+    panel = os.path.join(d, "panel.gfa")
+    write_gfa(graph, path=panel)
+    truths = {}
+    for sample in GT_SAMPLES:
+        truths[sample] = mosaic_target(rng, haps, length, 3, 5e-4)
+        with gzip.open(os.path.join(d, f"{sample}.fasta.gz"), "wt") as f:
+            f.write(f">{sample}\n")
+            for i in range(0, len(truths[sample]), 80):
+                f.write(truths[sample][i:i + 80] + "\n")
+    out = {"build_s": time.time() - t0, "floors": {}}
+    g = tensorize(read_gfa(panel))
+    real, walk_s = edits.edit_stats, []
+
+    def timed(a, b):
+        t = time.time()
+        st = real(a, b)
+        walk_s.append(time.time() - t)
+        return st
+
+    edits.edit_stats = timed  # panel_floor imports it when called
+    try:
+        for sample in GT_SAMPLES:
+            walk_s.clear()
+            name, ed = groundtruth.panel_floor_cached(
+                g, truths[sample], sample, panel,
+                cache_path=os.path.join(d, "bench_results",
+                                        ".floors_cache.json"))
+            out["floors"][sample] = {"hap": name, "edit": ed,
+                                     "walk_s": list(walk_s)}
+    finally:
+        edits.edit_stats = real
+    return out
+
+
+def start_gt_build() -> None:
+    """Start a child process that runs gt_build(GT_DIR) and prints its
+    JSON."""
+    code = ("import json, chip_smoke\n"
+            f"print(json.dumps(chip_smoke.gt_build({GT_DIR!r})))\n")
+    BUILDS["gt"] = subprocess.Popen(
+        [sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def finish_gt_build():
+    """Wait for gt_build's child; returns (its JSON, s this process waited
+    for it). Raises if the child failed."""
+    t0 = time.time()
+    proc = BUILDS.pop("gt")
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"building phase 16's panel failed "
+                           f"({proc.returncode}): {err[-2000:]}")
+    return json.loads(out.splitlines()[-1]), time.time() - t0
+
+
+@contextlib.contextmanager
+def cells_counted():
+    """Wrap groundtruth.infer_cell for the block (run_grid and
+    floor_diag.diagnose call it through the module): every call still
+    runs, and its result, its pipeline runs (per_run's records), its wall
+    and its DP solves and branch-and-bound calls (the certification
+    ladder's work) are appended to the list the block gets."""
+    from phi_tpu_torch import pipeline
+    from phi_tpu_torch.eval import groundtruth
+    from phi_tpu_torch.solve import bnb
+    real, seen = groundtruth.infer_cell, []
+
+    def wrapped(*args, **kwargs):
+        t0 = time.time()
+        with per_run() as runs, spy(pipeline, "_solve_and_decode") as solves, \
+                spy(bnb, "branch_and_bound") as bnbs:
+            out = real(*args, **kwargs)
+        seen.append({"cell": out, "runs": runs, "wall": time.time() - t0,
+                     "solves": len(solves), "bnb": len(bnbs)})
+        return out
+
+    groundtruth.infer_cell = wrapped
+    try:
+        yield seen
+    finally:
+        groundtruth.infer_cell = real
+
+
+def cell_line(label: str, rec) -> str:
+    """One infer_cell of cells_counted: its dict, and per pipeline run the
+    wall, launches and peak device memory, with the card."""
+    c = rec["cell"]
+    runs = "; ".join(
+        f"run {i} wall {run['wall']:.3f} s, peak {run['peak']} B, launches "
+        f"{json.dumps(run['launches'])}" for i, run in enumerate(rec["runs"]))
+    return (f"{label}: edit {c['edit']}, recombinations "
+            f"{c['recombinations']}, gap {c['gap']}, escalated "
+            f"{c['escalated']}, {c['n_reads']} reads; cell wall "
+            f"{rec['wall']:.3f} s, {rec['solves']} DP solves, {rec['bnb']} "
+            f"branch-and-bound; {runs} ({CARD})")
+
+
+def phase16(dev, launches) -> int:
+    """Phase 16 (a-f): the ground-truth accuracy chain on the card, at the
+    MHC_4 panel's shape (GT_WALKS walks x GT_LENGTH bp, synthetic, from
+    seed 0) with two synthetic held-out truths, cut by depth: (a) the
+    floors, (b) run_grid under subs at 0.1-10x (APD) and 1, 10x (COX),
+    indel and longread at 1, 10x (APD), (c) a forced escalation, (d)
+    floor_diag.diagnose at 10x, (e) one cell on the CPU, (f) the merge of
+    the grids' shards. Runs with GT_DIR as the working directory (the
+    floors' default cache); adds its launches to `launches`. Returns 0, or
+    1 after a failure line."""
+    from phi_tpu_torch.eval import groundtruth
+    t16 = time.time()
+    built, waited = finish_gt_build()
+    log(f"phase 16: {GT_WALKS} walks x {GT_LENGTH} bp (synth_pangenome, "
+        f"seed 0) and the held-out truths {', '.join(GT_SAMPLES)}: "
+        f"synthetic stand-ins for the reference's assemblies and the MHC_4 "
+        f"panel, which the repo does not hold; built in "
+        f"{built['build_s']:.3f} s by a child process, which then computed "
+        f"the floors; waited {waited:.3f} s for it ({CARD})")
+    saved_panel = groundtruth.PANEL_GFA
+    # floor_diag reads the module's panel
+    groundtruth.PANEL_GFA = os.path.join(GT_DIR, "panel.gfa")
+    try:
+        with contextlib.chdir(GT_DIR):
+            rc = gt_phases(dev, launches, built)
+    finally:
+        groundtruth.PANEL_GFA = saved_panel
+    log(f"phase 16: {time.time() - t16:.3f} s in all ({CARD})")
+    return rc
+
+
+def add_launches(launches: dict, n: dict) -> None:
+    """Add the kernels that launched in `n` to `launches`."""
+    for kern, c in n.items():
+        if c:
+            launches[kern] = launches.get(kern, 0) + c
+
+
+def gt_floors(d: str, built: dict, n_walks: int = GT_WALKS) -> int:
+    """Phase 16a: each truth's floor read back from gt_build's cache in d
+    must be the one gt_build computed there, with n_walks walks timed.
+    Returns 0, or 1 after a failure line."""
+    from phi_tpu_torch.eval import groundtruth
+    from phi_tpu_torch.graph.pangenome import tensorize
+    from phi_tpu_torch.io.gfa import read_gfa
+    panel = os.path.join(d, "panel.gfa")
+    graph = tensorize(read_gfa(panel))
+    for s in GT_SAMPLES:
+        truth = groundtruth.load_truth(s, d)
+        t0 = time.time()
+        floor = groundtruth.panel_floor_cached(
+            graph, truth, s, panel,
+            cache_path=os.path.join(d, "bench_results", ".floors_cache.json"))
+        hit = time.time() - t0
+        child = built["floors"][s]
+        log(f"phase 16a {s}: floor {floor[1]} edits ({floor[0]}) for a "
+            f"{len(truth)} bp truth; panel_floor_cached computed it in "
+            f"{sum(child['walk_s']):.3f} s in the build's child, per walk "
+            f"{json.dumps([round(t, 3) for t in child['walk_s']])} s; read "
+            f"back from its cache in {hit:.4f} s ({CARD})")
+        if list(floor) != [child["hap"], child["edit"]] \
+                or len(child["walk_s"]) != n_walks:
+            return fail(f"phase 16a: {s}'s cached floor {floor} is not the "
+                        f"one computed, {child}")
+    return 0
+
+
+def gt_phases(dev, launches, built: dict) -> int:
+    """Phases 16a-f in the working directory GT_DIR (see phase16)."""
+    import torch
+    from phi_tpu_torch.eval import floor_diag, groundtruth, merge_gt
+    from phi_tpu_torch.pipeline import gap_tol
+    panel, tol = groundtruth.PANEL_GFA, gap_tol(100.0)
+    # 16a: the floors (computed by the build's child; read from the cache)
+    if gt_floors(GT_DIR, built):
+        return 1
+    truths = {s: groundtruth.load_truth(s, GT_DIR) for s in GT_SAMPLES}
+
+    # 16b: the grids, one run_grid per (sample, error model)
+    grids = [("APD", "subs", [0.1, 0.5, 1.0, 2.0, 5.0, 10.0]),
+             ("COX", "subs", [1.0, 10.0]), ("APD", "indel", [1.0, 10.0]),
+             ("APD", "longread", [1.0, 10.0])]
+    results, cuda_cells = {}, {}
+    for sample, model, covs in grids:
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.time()
+        with cells_counted() as cells:
+            res = groundtruth.run_grid(
+                samples=[sample], coverages=covs, seeds=1, gfa_path=panel,
+                error_model=model, progress=False, device=dev,
+                truth_dir=GT_DIR)
+        wall, n = time.time() - t0, read_launches()
+        add_launches(launches, n)
+        results.setdefault(model, []).append((sample, res))
+        log(f"phase 16b {sample} {model}: run_grid of {len(covs)} cells in "
+            f"{wall:.3f} s, launches {json.dumps(n)} ({CARD})")
+        if len(cells) != len(res["cells"]):
+            return fail(f"phase 16b: {len(cells)} infer_cell calls for "
+                        f"{len(res['cells'])} cells")
+        for row, rec in zip(res["cells"], cells):
+            label = f"phase 16b {sample} {model} {row['coverage']:g}x"
+            log(cell_line(label, rec) + f"; floor {row['floor_edit']}, "
+                f"beats it {row['beats_floor']}, certified "
+                f"{row['certified']}")
+            cuda_cells[(sample, model, row["coverage"])] = rec["cell"]
+            for run in rec["runs"]:
+                if run["launches"]["rows3"] <= 0 \
+                        or not on_cuda(run["result"]):
+                    return fail(f"{label}: a run launched no rows3 kernel "
+                                f"or left the card")
+            if not row["certified"]:
+                log(f"{label}: not certified, gap {row['gaps']}")
+            if row["coverage"] >= 2 \
+                    and not row["edit_median"] < row["floor_edit"]:
+                return fail(f"{label}: the mosaic's edit "
+                            f"{row['edit_median']} does not beat the floor "
+                            f"{row['floor_edit']}")
+
+    # 16c: a forced escalation restores the environment
+    env = {k: v for k, v in os.environ.items() if k.startswith("PHI_TPU_")}
+    zero_launches()
+    with cells_counted() as cells:
+        cell = groundtruth.infer_cell(panel, truths["APD"], 2.0, seed=7,
+                                      escalate_tol=-1.0, device=dev)
+    n = read_launches()
+    add_launches(launches, n)
+    rec = cells[0]
+    log(cell_line("phase 16c forced escalation, APD subs 2x", rec)
+        + f"; the escalated re-solve {rec['runs'][-1]['wall']:.3f} s")
+    after = {k: v for k, v in os.environ.items() if k.startswith("PHI_TPU_")}
+    if not cell["escalated"] or len(rec["runs"]) != 2 or after != env:
+        return fail(f"phase 16c: escalated {cell['escalated']}, "
+                    f"{len(rec['runs'])} runs, PHI_TPU_* before {env}, "
+                    f"after {after}")
+    if any(run["launches"]["rows3"] <= 0 for run in rec["runs"]):
+        return fail("phase 16c: a run launched no rows3 kernel")
+
+    # 16d: the R = 1 diagnosis at 10x
+    zero_launches()
+    t0 = time.time()
+    with cells_counted() as cells:
+        diag = floor_diag.diagnose(samples=("APD",), coverage=10.0,
+                                   progress=False, device=dev,
+                                   truth_dir=GT_DIR)
+    wall, n = time.time() - t0, read_launches()
+    add_launches(launches, n)
+    for label, rec in zip(("production R=100", "oracle R=1"), cells):
+        log(cell_line(f"phase 16d APD 10x {label}", rec))
+    log(f"phase 16d: diagnose in {wall:.3f} s: {json.dumps(diag['rows'])}; "
+        f"launches {json.dumps(n)} ({CARD})")
+    if len(cells) != 2 or any(run["launches"]["rows3"] <= 0
+                              for rec in cells for run in rec["runs"]):
+        return fail("phase 16d: a run launched no rows3 kernel")
+
+    # 16e: the APD 1x subs cell on the CPU equals the card's
+    em = groundtruth.ERROR_MODELS["subs"]
+    t0 = time.time()
+    cpu = groundtruth.infer_cell(panel, truths["APD"], 1.0, seed=7,
+                                 error_rate=em["error_rate"],
+                                 read_len=em["read_len"],
+                                 indel_rate=em["indel_rate"],
+                                 escalate_tol=tol, device="cpu")
+    keys = ("edit", "recombinations", "gap", "n_reads")
+    want = cuda_cells[("APD", "subs", 1.0)]
+    log(f"phase 16e: APD subs 1x on the CPU in {time.time() - t0:.3f} s: "
+        f"{json.dumps(cpu)}; on cuda {json.dumps(want)}")
+    if any(cpu[k] != want[k] for k in keys):
+        return fail(f"phase 16e: the CPU cell differs from the card's in "
+                    f"{[k for k in keys if cpu[k] != want[k]]}")
+
+    # 16f: each grid's shards merged per error model
+    parts = os.path.join(GT_DIR, "parts")
+    for model, shards in results.items():
+        for sample, res in shards:
+            groundtruth.write_outputs(
+                res, os.path.join(parts, f"{model}_{sample}"))
+        with stderr_tee() as err:
+            merged = merge_gt.merge(parts, model,
+                                    os.path.join(GT_DIR, "merged", model))
+        cells = [c for _, res in shards for c in res["cells"]]
+        counts = [len(merged["cells"]),
+                  sum(c["certified"] for c in merged["cells"]),
+                  sum(c["beats_floor"] for c in merged["cells"])]
+        missing = err.getvalue().count("[merge-gt] missing shard")
+        log(f"phase 16f {model}: merged {counts[0]} cells, {counts[1]} "
+            f"certified, {counts[2]} beat the floor; {missing} missing "
+            f"shards (the reference's other samples)")
+        if counts != [len(cells), sum(c["certified"] for c in cells),
+                      sum(c["beats_floor"] for c in cells)] \
+                or missing != len(groundtruth.SAMPLES) - len(shards) \
+                or sorted(merged["floors"]) \
+                != sorted(sample for sample, _ in shards):
+            return fail(f"phase 16f {model}: the merge's counts {counts} "
+                        f"or its {missing} missing shards do not add up")
+    return 0
+
+
+def phase16_csv(matrix_csv: str, main_edit: int) -> int:
+    """Phase 16g, after phase 13: phase 13b's matrix CSV through
+    plots.read_matrix_csv (its reads, coverages and the 1x edit); no
+    figure is drawn. Returns 0, or 1 after a failure line."""
+    import importlib.util
+    from phi_tpu_torch.eval import plots
+    reads, covs, csv_cells = plots.read_matrix_csv(matrix_csv)
+    log(f"phase 16g: read_matrix_csv of phase 13's matrix.csv: reads "
+        f"{reads}, coverages {covs}, cells "
+        f"{json.dumps({f'{r} {c}': v for (r, c), v in csv_cells.items()})}; "
+        f"figures are not drawn (matplotlib "
+        f"{'present' if importlib.util.find_spec('matplotlib') else 'absent'}"
+        f" on this machine; the smoke draws none)")
+    if reads != ["sim"] or sorted(covs) != ["0.1x", "1x"] \
+            or csv_cells[("sim", "1x")][2] != main_edit:
+        return fail(f"phase 16g: the CSV holds {reads} x {covs}, not phase "
+                    f"13b's cells with its 1x edit {main_edit}")
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     alone = None
@@ -1516,10 +1889,15 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     # phase 15's instance starts building once phase 6's is done: the two
-    # builds side by side slow the one phase 6 waits for
+    # builds side by side slow the one phase 6 waits for; phase 16's panel
+    # (a light build, then the floors' native edit distances) starts now,
+    # and phase 16 runs while phase 6's instance builds
+    builds = f"the instance {alone or CHROM200} (haplotypes, length, coverage)"
+    if not alone:
+        start_gt_build()
+        builds += " and phase 16's panel"
     start_build(alone or CHROM200)
-    log(f"building the instance {alone or CHROM200} (haplotypes, length, "
-        f"coverage) in a child process meanwhile")
+    log(f"building {builds} in child processes meanwhile")
 
     # --- phase 1: build ---
     from phi_tpu_torch.sketch import kernels as tk
@@ -1673,6 +2051,11 @@ def main(argv=None) -> int:
             check(kern, args, k, 25, tk.block_cap(25))
         log(f"{kern} equal to twin on the 49 x 5 Mbp instance's first 2 "
             f"batches (k={k})")
+
+    # --- phase 16 (a-f): the ground-truth chain at the MHC_4 panel's
+    # shape, while phase 6's instance builds ---
+    if phase16(dev, launches):
+        return 1
 
     # --- phase 6: the v2 mixed route at chromosome length ---
     from phi_tpu_torch.ops.search import CUCKOO_MAX_KEYS
@@ -1939,6 +2322,11 @@ def main(argv=None) -> int:
 
     # --- phase 15: chromosome scale, 49 x 46 Mbp ---
     if phase15(dev, big, save_run.graph, launches, models):
+        return 1
+
+    # --- phase 16g: phase 13's matrix CSV read back ---
+    if phase16_csv(os.path.join(os.path.dirname(big["gfa"]), "matrix.csv"),
+                   main_edit):
         return 1
 
     replaces = {"rows3": 1000, "rows3w": 1340, "rows2": 688, "rows": 237,

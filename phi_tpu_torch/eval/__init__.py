@@ -13,7 +13,16 @@ each driving the port's pipeline on an explicit `device` (default cuda).
 - `baselines`: the best-single-panel-haplotype and greedy stand-ins;
 - `crossval`: leave-one-out over a panel;
 - `throughput`: sketch and join throughput; `phi-torch-throughput`;
-- `frontier`: the optimality failure-frontier mapper.
+- `frontier`: the optimality failure-frontier mapper;
+- `groundtruth`, `floor_diag`, `merge_gt`: the ground-truth accuracy chain
+  (`run_grid` of held-out truths against a panel with the best-single-hap
+  floor and the certification escalation, the R = 1 ceiling diagnosis,
+  the merge of per-sample shards);
+- `plots`: the matrix and scaling figures (`phi-torch-plots`; matplotlib
+  is imported only to draw);
+- `datasets`, `competitors`: the tool-gated dataset build
+  (`phi-torch-datasets`) and the vg / PanGenie runners, whose native
+  steps run here and whose binaries run where they are on PATH.
 """
 
 from phi_tpu_torch.eval.edits import edit_stats

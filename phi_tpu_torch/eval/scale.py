@@ -193,6 +193,29 @@ def progressive_subsets(gfa_path: str, reads_path: str, truth_path: str,
     return rows
 
 
+def mosaic_target(rng: np.random.Generator, hap_seqs: list[str],
+                  length: int, n_breaks: int, private_rate: float) -> str:
+    """A held-out target: a mosaic of the haplotypes with n_breaks
+    switchpoints (drawn in the middle 80% of the shortest) in a random
+    order of haplotypes, carrying private SNPs at private_rate."""
+    n_haps = len(hap_seqs)
+    bpos = np.sort(rng.integers(length // 10,
+                                min(len(s) for s in hap_seqs) - length // 10,
+                                n_breaks))
+    hs = rng.permutation(n_haps)
+    parts, cur, cursor = [], int(hs[0]), 0
+    for i, p in enumerate(bpos.tolist()):
+        parts.append(hap_seqs[cur][cursor:p])
+        cur, cursor = int(hs[(i + 1) % n_haps]), p
+    parts.append(hap_seqs[cur][cursor:])
+    tgt = np.frombuffer("".join(parts).encode(), np.uint8).copy()
+    priv = rng.random(len(tgt)) < private_rate
+    tgt[priv] = np.frombuffer(b"ACGT", np.uint8)[
+        (np.searchsorted(np.frombuffer(b"ACGT", np.uint8), tgt[priv])
+         + rng.integers(1, 4, int(priv.sum()))) % 4]
+    return tgt.tobytes().decode()
+
+
 def build_heldout_instance(n_haps: int, length: int, coverages: list[float],
                            seed: int = 0, var_rate: float = 0.01,
                            error_rate: float = 0.003, n_rate: float = 0.002,
@@ -221,22 +244,8 @@ def build_heldout_instance(n_haps: int, length: int, coverages: list[float],
         graph, hap_seqs = synth_pangenome(rng, length=length, n_haps=n_haps,
                                           var_rate=var_rate,
                                           indel_fraction=indel_fraction)
-        # mosaic target with private SNPs
-        bpos = np.sort(rng.integers(length // 10,
-                                    min(len(s) for s in hap_seqs) - length // 10,
-                                    n_breaks))
-        hs = rng.permutation(n_haps)
-        parts, cur, cursor = [], int(hs[0]), 0
-        for i, p in enumerate(bpos.tolist()):
-            parts.append(hap_seqs[cur][cursor:p])
-            cur, cursor = int(hs[(i + 1) % n_haps]), p
-        parts.append(hap_seqs[cur][cursor:])
-        tgt = np.frombuffer("".join(parts).encode(), np.uint8).copy()
-        priv = rng.random(len(tgt)) < private_rate
-        tgt[priv] = np.frombuffer(b"ACGT", np.uint8)[
-            (np.searchsorted(np.frombuffer(b"ACGT", np.uint8), tgt[priv])
-             + rng.integers(1, 4, int(priv.sum()))) % 4]
-        target = tgt.tobytes().decode()
+        target = mosaic_target(rng, hap_seqs, length, n_breaks,
+                               private_rate)
         write_gfa(graph, path=gfa_path)
         with open(truth_path, "w") as f:
             f.write(">target\n")

@@ -195,7 +195,12 @@ def test_port_imports_nothing_of_phi_tpu_or_jax():
             "phi_tpu_torch/eval/throughput.py",
             "phi_tpu_torch/parallel/__init__.py",
             "phi_tpu_torch/parallel/dist.py",
-            "phi_tpu_torch/parallel/sharded.py"} <= rel
+            "phi_tpu_torch/parallel/sharded.py",
+            "phi_tpu_torch/eval/groundtruth.py",
+            "phi_tpu_torch/eval/floor_diag.py",
+            "phi_tpu_torch/eval/merge_gt.py", "phi_tpu_torch/eval/plots.py",
+            "phi_tpu_torch/eval/datasets.py",
+            "phi_tpu_torch/eval/competitors.py"} <= rel
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

@@ -259,6 +259,10 @@ def test_port_run_loads_no_jax(tmp_path):
             "import phi_tpu_torch.eval.crossval, phi_tpu_torch.eval.scale\n"
             "import phi_tpu_torch.eval.throughput, phi_tpu_torch.io.subset\n"
             "import phi_tpu_torch.parallel.dist, os\n"
+            "import phi_tpu_torch.eval.groundtruth, phi_tpu_torch.eval.plots\n"
+            "import phi_tpu_torch.eval.floor_diag, phi_tpu_torch.eval.merge_gt\n"
+            "import phi_tpu_torch.eval.datasets\n"
+            "import phi_tpu_torch.eval.competitors\n"
             "from phi_tpu_torch.cli import main\n"
             f"g = ['-g', {gfa_path!r}, '-o', {str(tmp_path / 'out.fa')!r}, "
             "'--device', 'cpu']\n"
