@@ -141,6 +141,22 @@ Phases, in order; any failure exits non-zero:
      add up, the six other samples' shards reported missing; (g) phase
      13b's matrix CSV through read_matrix_csv (its reads, coverages and
      the 1x edit); no figure is drawn.
+ 17. the join pipelines and the cross-run device caches, under
+     PHI_TPU_JOIN_PROF=1 (its [danchor-prof] lines logged): (a) after
+     15d, the warm chromosome run's join_anchors_device alone with
+     PHI_TPU_PACK_WORKERS=1 and with the default 3: per_hap_min and every
+     DeviceOcc column array-equal to the warm run's, each wall, and the
+     card's busy share of each (a second call under torch.profiler),
+     and the time of the walks' codes the pipeline reads first; (b)
+     after phase 4's warm run, a third run from the packed-batch slot:
+     one slot hit, the warm run's rows3 launches and FASTA byte for byte,
+     its sketch_haps and solve_tables beside the warm run's, and a run
+     with the slot off (PHI_TPU_PACK_CACHE_MB=0) beside them; (c) in
+     16b, every pipeline run on the one panel after the first hits the
+     slot; (d) after phase 3, its graph on another node chop (every
+     segment cut in two) misses the slot: its key holds the node
+     lengths; the same per-walk minimizer counts, and the DeviceOcc of a
+     run with the slot emptied.
 Phases 4-16 set every kernel's launch count to 0 just before each run and
 read them just after; the kernels JSON adds the launches of phase 13, of
 phase 14's mesh run (14b) and of phases 15's and 16's runs to those of
@@ -1458,6 +1474,10 @@ def phase15(dev, big, g49, launches, models, shape=CHROM46) -> int:
     finally:
         os.environ.pop("PHI_TPU_FIN_CHUNK", None)
 
+    # 17a: the warm run's join with 1 and with 3 pack workers
+    if phase17a(jargs, jkw, r.anchors.per_hap_minimizers, occ):
+        return 1
+
     # 15b, the card's busy share: the warm run once more under the profiler
     # (phi_tpu_torch.trace's method), over the unprofiled warm wall
     cur.clear()
@@ -1701,7 +1721,7 @@ def gt_floors(d: str, built: dict, n_walks: int = GT_WALKS) -> int:
 def gt_phases(dev, launches, built: dict) -> int:
     """Phases 16a-f in the working directory GT_DIR (see phase16)."""
     import torch
-    from phi_tpu_torch.eval import floor_diag, groundtruth, merge_gt
+    from phi_tpu_torch.eval import floor_diag, groundtruth, merge_gt, onchip
     from phi_tpu_torch.pipeline import gap_tol
     panel, tol = groundtruth.PANEL_GFA, gap_tol(100.0)
     # 16a: the floors (computed by the build's child; read from the cache)
@@ -1714,6 +1734,7 @@ def gt_phases(dev, launches, built: dict) -> int:
              ("COX", "subs", [1.0, 10.0]), ("APD", "indel", [1.0, 10.0]),
              ("APD", "longread", [1.0, 10.0])]
     results, cuda_cells = {}, {}
+    slot0, n_runs = onchip.cache_counts()["pack_slot"], 0
     for sample, model, covs in grids:
         torch.cuda.synchronize()
         zero_launches()
@@ -1737,6 +1758,7 @@ def gt_phases(dev, launches, built: dict) -> int:
                 f"beats it {row['beats_floor']}, certified "
                 f"{row['certified']}")
             cuda_cells[(sample, model, row["coverage"])] = rec["cell"]
+            n_runs += len(rec["runs"])
             for run in rec["runs"]:
                 if run["launches"]["rows3"] <= 0 \
                         or not on_cuda(run["result"]):
@@ -1749,6 +1771,16 @@ def gt_phases(dev, launches, built: dict) -> int:
                 return fail(f"{label}: the mosaic's edit "
                             f"{row['edit_median']} does not beat the floor "
                             f"{row['floor_edit']}")
+
+    # 17c: every grid run on the one panel after the first hits the slot
+    slot = onchip.cache_counts()["pack_slot"]
+    hits = slot["hits"] - slot0["hits"]
+    log(f"phase 17c: {n_runs} pipeline runs on the panel in 16b: "
+        f"{hits} packed-batch slot hits, {slot['stores'] - slot0['stores']} "
+        f"stores")
+    if hits != n_runs - 1:
+        return fail(f"phase 17c: {hits} slot hits in {n_runs} runs on one "
+                    f"panel")
 
     # 16c: a forced escalation restores the environment
     env = {k: v for k, v in os.environ.items() if k.startswith("PHI_TPU_")}
@@ -1826,6 +1858,204 @@ def gt_phases(dev, launches, built: dict) -> int:
                 != sorted(sample for sample, _ in shards):
             return fail(f"phase 16f {model}: the merge's counts {counts} "
                         f"or its {missing} missing shards do not add up")
+    return 0
+
+
+@contextlib.contextmanager
+def env_set(**kv):
+    """os.environ with the given variables set for the block, restored
+    after it."""
+    saved = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def prof_lines(err: str) -> list[str]:
+    """The join profiler's lines of a stderr."""
+    return [ln for ln in err.splitlines()
+            if ln.startswith(("[danchor-prof]", "[join-prof]"))]
+
+
+def phase17a(jargs, jkw, want_min, want) -> int:
+    """Phase 17a: the warm chromosome run's join again, alone, with 1 pack
+    worker and with the default 3, under PHI_TPU_JOIN_PROF=1 and with the
+    packed-batch slot off (its batches pass the slot's gate anyway, as
+    they do in the JAX package): per_hap_min
+    and every DeviceOcc column array-equal across the two and to the warm
+    run's, each wall, the profiler's lines and the card's busy share (a
+    second call under torch.profiler, over the first call's wall); then
+    the time of the walks' codes (walk_seq_codes), the part of
+    sketch_haps outside the join. Returns 0, or 1 after a failure
+    line."""
+    import numpy as np
+    import torch
+    from phi_tpu_torch.anchors import device as danchors
+
+    def join():
+        out = danchors.join_anchors_device(*jargs, **jkw)
+        torch.cuda.synchronize()
+        return out
+
+    walls = {}
+    for workers in ("1", "3"):
+        # the slot off, so that both pack every batch at any size
+        with env_set(PHI_TPU_PACK_WORKERS=workers, PHI_TPU_JOIN_PROF="1",
+                     PHI_TPU_PACK_CACHE_MB="0"):
+            zero_launches()
+            with stderr_tee() as err:
+                t0 = time.time()
+                got_min, got = join()
+                walls[workers] = time.time() - t0
+            n = read_launches()
+        with env_set(PHI_TPU_PACK_WORKERS=workers, PHI_TPU_PACK_CACHE_MB="0"):
+            busy = profiled_busy(join)
+        same = np.array_equal(got_min, want_min) and same_occ(got, want)
+        log(f"phase 17a PHI_TPU_PACK_WORKERS={workers}: join_anchors_device "
+            f"wall {walls[workers]:.3f} s, busy {busy:.3f} s (share "
+            f"{busy / walls[workers]:.4f}), launches {json.dumps(n)}; "
+            f"per_hap_min and DeviceOcc columns equal to the warm run's: "
+            f"{same} ({CARD}); profiler: "
+            + " | ".join(prof_lines(err.getvalue())))
+        if not same or n["rows3"] <= 0:
+            return fail(f"phase 17a: {workers} worker(s) gave other arrays "
+                        f"or launched no rows3")
+        del got_min, got
+    log(f"phase 17a: 3 workers {walls['3']:.3f} s against 1 worker "
+        f"{walls['1']:.3f} s ({walls['1'] / walls['3']:.3f}x) ({CARD})")
+    # the rest of sketch_haps: the walks' codes, which the pipeline reads
+    # before it joins
+    graph = jargs[0]
+    t0 = time.time()
+    for h in range(graph.num_walks):
+        graph.walk_seq_codes(h)
+    log(f"phase 17a: the {graph.num_walks} walks' codes (walk_seq_codes, "
+        f"outside the join) {time.time() - t0:.3f} s ({CARD})")
+    return 0
+
+
+def phase17b(big, dev, warm) -> int:
+    """Phase 17b: phase 4 a third time under PHI_TPU_JOIN_PROF=1, hitting
+    the packed-batch slot the cold run stored: the hit logged, the warm
+    run's rows3 launches, its FASTA byte for byte, sketch_haps and
+    solve_tables beside the warm run's; then once with the slot off
+    (PHI_TPU_PACK_CACHE_MB=0), which packs and uploads every batch.
+    `warm`: the warm run's (result, launches, FASTA path). Returns 0, or 1
+    after a failure line."""
+    from phi_tpu_torch.eval import onchip
+    r_w, n_w, fa_w = warm
+    flags = ["-k", "31", "-w", "25", "-R", "100"]
+    rows = [("warm", r_w, None)]
+    for label, env in (("third", {}), ("slot off",
+                                       {"PHI_TPU_PACK_CACHE_MB": "0"})):
+        out = os.path.join(os.path.dirname(big["gfa"]),
+                           f"port_k31_{label.replace(' ', '_')}.fa")
+        before = onchip.cache_counts()
+        with env_set(PHI_TPU_JOIN_PROF="1", **env), stderr_tee() as err:
+            r, wall, n, peak = run_counted(big, out, flags, dev)
+        delta = onchip.cache_delta(before, onchip.cache_counts())
+        same = same_file(out, fa_w)
+        log(f"phase 17b {label}: wall {wall:.3f} s, peak {peak} B, "
+            f"launches {json.dumps(n)}, FASTA == phase 4 warm: {same}; "
+            f"caches {json.dumps(delta)} ({CARD}); profiler: "
+            + " | ".join(prof_lines(err.getvalue())))
+        hits = delta["pack_slot"]["hits"]
+        if not same or n["rows3"] != n_w["rows3"] \
+                or hits != (1 if label == "third" else 0):
+            return fail(f"phase 17b {label}: {hits} slot hits, launches "
+                        f"{json.dumps(n)} against {json.dumps(n_w)}, FASTA "
+                        f"equal {same}")
+        rows.append((label, r, delta))
+    for label, r, _ in rows:
+        t = r.timings
+        log(f"phase 17b {label}: sketch_haps {t['sketch_haps']:.4f} s, "
+            f"solve_tables {t.get('solve_tables', 0.0):.4f} s, solve "
+            f"{t['solve']:.4f} s ({CARD})")
+    return 0
+
+
+def rechop_copy(src: str, dst: str) -> None:
+    """A copy of a GFA (forward S, L and W lines, as write_gfa gives them)
+    with every segment of two or more bases cut in two at its middle: the
+    same walk sequences on another node chop."""
+    with open(src) as f:
+        rows = [ln.split("\t") for ln in f.read().splitlines()]
+    parts = {}   # segment -> its pieces, in walk order
+    out = []
+    for p in rows:
+        if p[0] == "S" and len(p[2]) >= 2:
+            m = len(p[2]) // 2
+            parts[p[1]] = (f"{p[1]}_a", f"{p[1]}_b")
+            out += [["S", f"{p[1]}_a", p[2][:m]], ["S", f"{p[1]}_b", p[2][m:]],
+                    ["L", f"{p[1]}_a", "+", f"{p[1]}_b", "+", "0M"]]
+        elif p[0] in ("S", "H"):
+            if p[0] == "S":
+                parts[p[1]] = (p[1],)
+            out.append(p)
+    for p in rows:
+        if p[0] == "L":
+            out.append(["L", parts[p[1]][-1], p[2], parts[p[3]][0]] + p[4:])
+        elif p[0] == "W":
+            walk = "".join(">" + ">".join(parts[n])
+                           for n in p[6][1:].split(">"))
+            out.append(p[:6] + [walk])
+        elif p[0] not in ("S", "H"):
+            out.append(p)
+    with open(dst, "w") as f:
+        f.write("\n".join("\t".join(p) for p in out) + "\n")
+
+
+def phase17d(small, dev) -> int:
+    """Phase 17d: phase 3's graph, then a copy of it on another node chop
+    (rechop_copy): the copy misses the slot the first stored (the key
+    holds the node lengths), its per-walk minimizer counts equal the
+    first's (the same walk sequences), and its DeviceOcc equals a run of
+    it with the slot emptied first. Returns 0, or 1 after a failure
+    line."""
+    import numpy as np
+    from phi_tpu_torch import pipeline
+    from phi_tpu_torch.anchors import device as danchors
+    from phi_tpu_torch.eval import onchip
+    from phi_tpu_torch.graph.pangenome import tensorize
+    from phi_tpu_torch.io.gfa import read_gfa
+    from phi_tpu_torch.io.reads import load_read_batch
+    other = os.path.join(os.path.dirname(small["gfa"]), "rechop.gfa")
+    rechop_copy(small["gfa"], other)
+    sp = pipeline.read_spectrum(load_read_batch(small["reads"]), 31, 25)
+    graphs = [tensorize(read_gfa(p)) for p in (small["gfa"], other)]
+
+    def join(g):
+        seqs = [g.walk_seq_codes(h) for h in range(g.num_walks)]
+        with env_set(PHI_TPU_JOIN_PROF="1"):
+            return danchors.join_anchors_device(g, seqs, 31, 25, *sp, 1.0,
+                                                device=dev)
+
+    zero_launches()
+    first = join(graphs[0])
+    before = onchip.cache_counts()
+    second = join(graphs[1])
+    delta = onchip.cache_delta(before, onchip.cache_counts())
+    danchors.clear_pack_cache()
+    cold = join(graphs[1])
+    n = read_launches()
+    fps = [danchors.graph_fingerprint(g) for g in graphs]
+    same_min = np.array_equal(first[0], second[0])
+    log(f"phase 17d: {graphs[0].n_vtx} nodes re-chopped into "
+        f"{graphs[1].n_vtx}; fingerprints differ {fps[0] != fps[1]}; the "
+        f"copy's join: caches {json.dumps(delta)}, per-walk minimizers == "
+        f"phase 3's graph's {same_min}, DeviceOcc == a cold run's "
+        f"{same_occ(second[1], cold[1])}; launches {json.dumps(n)} ({CARD})")
+    if fps[0] == fps[1] or delta["pack_slot"]["hits"] \
+            or delta["pack_slot"]["stores"] != 1 or not same_min \
+            or not same_occ(second[1], cold[1]):
+        return fail("phase 17d: the re-chopped graph hit the slot or its "
+                    "join differs")
     return 0
 
 
@@ -2019,6 +2249,10 @@ def main(argv=None) -> int:
         f" recombinations, bound {rc.decode.dp_objective:.3f}, objective "
         f"{rc.decode.true_objective:.3f})")
 
+    # --- phase 17d: another node chop of phase 3's graph misses the slot ---
+    if phase17d(small, dev):
+        return 1
+
     # --- phases 4 and 5: the main path at size, k = 31 and wide k = 35 ---
     from phi_tpu_torch.eval import edit_stats
     t0 = time.time()
@@ -2047,6 +2281,9 @@ def main(argv=None) -> int:
                 main_edit = edit_stats(r.sequence, truth).edit_distance
                 main_report = (r.report_segments, r.recombination_count)
                 models["phase 4"] = (budget_of_run(r, 31, 25), peak)
+                # --- phase 17b: a third run, from the packed-batch slot ---
+                if phase17b(big, dev, (r, n, out)):
+                    return 1
         for args in instance_batches(r, k, 25, dev, False):
             check(kern, args, k, 25, tk.block_cap(25))
         log(f"{kern} equal to twin on the 49 x 5 Mbp instance's first 2 "

@@ -12,6 +12,14 @@ Two stages hold the device's memory, one after the other:
   solve    S, B, M (f32 [H, P]), the sweep's working set, W (f32 [L, H, P])
            or the streamed scratch, the switch sources and the state
            tables (int64), and the occurrence columns.
+Both stages also count what the cross-run caches hold: the packed-batch
+slot (the run's batches, when they are at most PHI_TPU_PACK_CACHE_MB),
+the solver's switch sources and lane tables kept from an earlier run
+(each array at most PHI_TPU_DEV_CACHE_MB, so that a re-run finds them by
+content) in the anchors stage, and walk_mat and its prefix hashes, which
+the device cache keeps past the anchors stage when walk_mat is at most
+PHI_TPU_DEV_CACHE_MB, in the solve stage (one device: a mesh run takes
+the host hit path).
 A stage's bytes are the sum of its rows, some of which are not alive at
 once (the filter's chunk temporaries end before its retained columns are
 written), so they bound its peak from above; the total is the larger
@@ -103,14 +111,18 @@ def budget(H: int, P: int, L: int, spectrum: int, n_occ: int, n_hits: int,
            n_esrc: int | None = None, chunk: int | None = None,
            sp_shards: int = 1, hap_shards: int = 1,
            stream_w: bool | None = None,
-           capacity: int | None = None) -> dict:
+           capacity: int | None = None, pack_slot: int = 0) -> dict:
     """Per-device bytes of one (sp_shards x hap_shards) mesh tile, by row
     and stage. windows: the walks' windows (walk_windows); n_esrc: switch
     sources (default one per 16 lanes, the JAX model's); chunk: the
     filter's chunk (default anchors.device.fin_chunk()); stream_w: the
     streamed solve, or None for the solver's rule against `capacity` less
     what the solve finds allocated; capacity: the device's bytes (default
-    the first card's total memory; None on a machine without one)."""
+    the first card's total memory; None on a machine without one);
+    pack_slot: the bytes of the run's batches in the packed-batch slot (0
+    when they pass its gate)."""
+    import os
+
     from phi_tpu_torch.anchors.device import fin_chunk, hit_buffer_len
     n_vtx = n_vtx if n_vtx is not None else P
     n_esrc = n_esrc if n_esrc is not None else H * max(1, P // 16)
@@ -133,12 +145,29 @@ def budget(H: int, P: int, L: int, spectrum: int, n_occ: int, n_hits: int,
             FIN_COLUMNS * 8 * ch,
         occ_cols[0]: occ_cols[1],
     }
+    one_device = sp_shards == hap_shards == 1
+    gate = int(os.environ.get("PHI_TPU_DEV_CACHE_MB", "256")) << 20
+    # the cached int32 sources: esrc h/p/target [n_esrc]; walk_mat [H, P]
+    esrc_kept = 3 * 8 * n_esrc if 4 * n_esrc <= gate else 0
+    lanes_kept = 8 * H * P + 8 * H if 4 * H * P <= gate else 0
+    slot_row = ("packed-batch cache slot (<= PHI_TPU_PACK_CACHE_MB)",
+                pack_slot)
+    anchors[slot_row[0]] = slot_row[1]
+    anchors["device cache: switch sources and lane tables of an earlier "
+            "run"] = esrc_kept + lanes_kept if one_device else 0
+    wm_row = ("device cache: walk_mat and prefix hashes kept past the "
+              "anchors",
+              8 * H * P + 2 * 8 * H * (P + 1) if one_device and lanes_kept
+              else 0)
     if stream_w is None:
-        held = occ_cols[1] + 3 * 8 * n_esrc + 8 * Hd * Pd + 8 * Hd
+        held = occ_cols[1] + 3 * 8 * n_esrc + 8 * Hd * Pd + 8 * Hd \
+            + slot_row[1] + wm_row[1]
         stream_w = capacity is not None and held + solve_bytes(
             Hd, Pd, L, n_occ, False, n_vtx) > capacity
     solve = _solve_rows(Hd, Pd, L, n_occ, stream_w, n_vtx, n_esrc)
     solve[occ_cols[0]] = occ_cols[1]
+    solve[slot_row[0]] = slot_row[1]
+    solve[wm_row[0]] = wm_row[1]
     stages = {"anchors": sum(anchors.values()),
               "solve": sum(solve.values())}
     total = max(stages.values())
@@ -169,7 +198,7 @@ def budget_of_run(result, k: int, w: int, capacity: int | None = None
                   windows=walk_windows((c[-1] for c in g.walk_node_cumlen), k,
                                        w), w=w,
                   n_vtx=g.n_vtx, n_esrc=len(switch_sources_cached(g)[0]),
-                  capacity=capacity)
+                  capacity=capacity, pack_slot=occ.pack_bytes)
 
 
 def main(argv=None) -> int:

@@ -14,7 +14,11 @@ x 100 Mbp, 2x reads:
 `hbm_peak_gb` is torch.cuda.max_memory_allocated() over the runs (source
 "measured") on the card; on the CPU, which has no device memory to
 measure, it is the memory model's total (eval.hbm_budget, source
-"analytic").
+"analytic"). Before each warm run the cross-run device caches (the
+solver's and anchors' device copies, the packed-batch slot) are dropped,
+as the JAX runner drops its own, so the warm runs upload what the cold
+one did and stay inside the card at chromosome scale; `caches` records
+each run's cache hits and uploads and the bytes the caches hold after it.
 """
 
 from __future__ import annotations
@@ -45,6 +49,35 @@ def _calm_summary(warm_times):
             **(summarize(calm) if calm else {})}
 
 
+def cache_counts() -> dict:
+    """The cross-run caches' counters since the process started, and the
+    device bytes they hold now."""
+    from phi_tpu_torch.anchors import device as danchors
+    from phi_tpu_torch.solve import dp, prep
+    return {"pack_slot": dict(danchors.PACK_CACHE_STATS),
+            "pack_slot_bytes": danchors.pack_cache_bytes(),
+            "dev_cache": dict(dp.DEV_CACHE_STATS),
+            "dev_cache_keys": len(dp._DEV_CACHE),
+            "dev_cache_bytes": dp.dev_cache_bytes(),
+            "esrc_slot": dict(prep.ESRC_CACHE_STATS)}
+
+
+def cache_delta(before: dict, after: dict) -> dict:
+    """One run's cache record: the counters' increments from `before` to
+    `after`, and what the caches hold at `after`."""
+    return {k: ({c: v[c] - before[k][c] for c in v} if isinstance(v, dict)
+                else v) for k, v in after.items()}
+
+
+def clear_caches() -> None:
+    """Drop the cross-run device caches: the solver's and anchors' device
+    copies and the packed-batch slot."""
+    from phi_tpu_torch.anchors import device as danchors
+    from phi_tpu_torch.solve import dp
+    dp.clear_dev_cache()
+    danchors.clear_pack_cache()
+
+
 def run(n_haps: int, length: int, coverage: float, seed: int,
         runs: int, lagrangian: int, mesh: int = 0, device="cuda") -> dict:
     import torch
@@ -65,21 +98,27 @@ def run(n_haps: int, length: int, coverage: float, seed: int,
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
 
+    caches = []
+    before = cache_counts()
     t0 = time.time()
     res = pipeline.run_pipeline(paths["gfa"], paths["reads"], out, opt,
                                 device=device)
     cold = time.time() - t0
+    caches.append(cache_delta(before, cache_counts()))
 
     warm_times: list[float] = []
     for _ in range(max(0, runs - 1)):
         # free the previous run's device handles (the DeviceSolution's M
-        # and B planes, the retained occurrence columns) before the next
-        # run allocates
+        # and B planes, the retained occurrence columns) and the caches'
+        # device copies before the next run allocates
         res = None
+        clear_caches()
+        before = cache_counts()
         t0 = time.time()
         res = pipeline.run_pipeline(paths["gfa"], paths["reads"], out, opt,
                                     device=device)
         warm_times.append(time.time() - t0)
+        caches.append(cache_delta(before, cache_counts()))
 
     with open(paths["truth"]) as f:
         truth = "".join(l.strip() for l in f if not l.startswith(">"))
@@ -118,6 +157,7 @@ def run(n_haps: int, length: int, coverage: float, seed: int,
                          - res.decode.dp_objective), 3),
         "timings_last_run": {k: round(v, 2)
                              for k, v in res.timings.items()},
+        "caches": caches,
         "reference_point": {"source": "data/plots/increasing.csv:2",
                             "haps": 49, "wall_s": 4828, "rss_gb": 133.3,
                             "note": "real MHC; this instance is SYNTHETIC "

@@ -9,6 +9,8 @@ each process over its own mesh.
 
 from __future__ import annotations
 
+import atexit
+
 import numpy as np
 import torch
 import torch.distributed as tdist
@@ -21,15 +23,29 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> tuple[int, int]:
     """Join a gloo process group at tcp://coordinator_address (host:port)
     when num_processes > 1; a no-op for one process. Returns (rank, world
-    size)."""
+    size). The group is left (shutdown) when the interpreter exits."""
     if num_processes is not None and num_processes > 1 \
             and not tdist.is_initialized():
         tdist.init_process_group(
             "gloo", init_method=f"tcp://{coordinator_address}",
             world_size=num_processes, rank=process_id)
+        atexit.register(shutdown)
     if tdist.is_initialized():
         return tdist.get_rank(), tdist.get_world_size()
     return 0, 1
+
+
+def shutdown() -> None:
+    """Leave the process group: a barrier, so that no process closes its
+    sockets while another still reads from them, then the group's
+    teardown. A process that exits with the group alive (its gloo threads
+    and, on rank 0, the store's server still running) can abort in its
+    exit."""
+    if tdist.is_initialized():
+        try:
+            tdist.barrier()
+        finally:
+            tdist.destroy_process_group()
 
 
 def read_shard_bounds(n_reads: int, process_index: int,

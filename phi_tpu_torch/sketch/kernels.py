@@ -900,15 +900,25 @@ def plan_join_rows(seqs: list[np.ndarray], k: int, w: int,
     return results, rows
 
 
+def pack_join_host(seqs, batch, row_lanes: int, pin: bool = False):
+    """One v1 batch as host tensors: (words int32 view [R, row_lanes //
+    16], nvalid int32 [R], left int32 [R]), page-locked when `pin`."""
+    out = (torch.from_numpy(pack_rows_2bit(seqs, batch, row_lanes)
+                            .view(np.int32)),
+           torch.tensor([r[2] for r in batch], dtype=torch.int32),
+           torch.from_numpy(pack_row_left(seqs, batch)))
+    return tuple(t.pin_memory() for t in out) if pin else out
+
+
 def pack_join_batch(seqs, batch, row_lanes: int, device):
-    """One v1 batch on the device: (words int32 view [R, row_lanes // 16],
-    nvalid int32 [R], left int32 [R])."""
+    """One v1 batch on the device (pack_join_host's tensors)."""
     from phi_tpu_torch import state
-    return (state.words_tensor(pack_rows_2bit(seqs, batch, row_lanes),
-                               device),
-            torch.tensor([r[2] for r in batch], dtype=torch.int32,
-                         device=device),
-            torch.from_numpy(pack_row_left(seqs, batch)).to(device))
+    return state.upload(pack_join_host(seqs, batch, row_lanes), device)
+
+
+# v1 batches in flight: a batch's counts are read (and an overflowing
+# batch rerun) once WINDOW later batches are queued behind it
+WINDOW = 3
 
 
 def join_many(seqs: list[np.ndarray], k: int, w: int, sp_hi, sp_lo, *,
@@ -923,11 +933,17 @@ def join_many(seqs: list[np.ndarray], k: int, w: int, sp_hi, sp_lo, *,
     Each sequence is cut into rows of super_blocks * BLK windows
     (plan_join_rows), batched rows_per_call at a time. A row that continues
     a sequence takes the base at start - 1 as its left context
-    (pack_row_left), so rows and batches carry nothing. A batch whose
-    emitted lanes overflow emitcap or whose hits overflow cap_total (the
-    reference's join_caps) is rerun with the caps raised to the next power
-    of two; n_min is exact either way. The geometry defaults to ROWS rows
-    of SUPER_BLOCKS blocks, read when called.
+    (pack_row_left), so rows and batches carry nothing. The geometry
+    defaults to ROWS rows of SUPER_BLOCKS blocks, read when called.
+
+    A worker thread packs batch b + 1 while batch b is uploaded and
+    launched; WINDOW batches are in flight, and a batch's counts are read
+    once WINDOW later batches are queued. A batch whose emitted lanes
+    overflow emitcap or whose hits overflow cap_total (the reference's
+    join_caps) is rerun there with the caps raised to the next power of
+    two; n_min is exact either way, and since batches carry nothing the
+    rerun touches no other batch. PHI_TPU_JOIN_PROF=1 writes the
+    pack_wait / dispatch / harvest totals to stderr as a [join-prof] line.
 
     With `devices` (a mesh's devices, which may repeat), the sequences are
     round-robined over them, sequence j on devices[j % len(devices)], each
@@ -948,7 +964,12 @@ def join_many(seqs: list[np.ndarray], k: int, w: int, sp_hi, sp_lo, *,
                          f"got k={k}")
     if k + w - 2 > HALO_PAD:
         raise ValueError(f"k + w - 2 must be <= {HALO_PAD}")
+    from concurrent.futures import ThreadPoolExecutor
+    from time import perf_counter
+
+    from phi_tpu_torch import state
     from phi_tpu_torch.ops.search import mixed_tensors
+    device = torch.device(device)
     super_blocks = super_blocks or SUPER_BLOCKS
     row_lanes = (super_blocks + 1) * BLK
     results, rows = plan_join_rows(seqs, k, w, super_blocks)
@@ -959,25 +980,72 @@ def join_many(seqs: list[np.ndarray], k: int, w: int, sp_hi, sp_lo, *,
     caps = (emit_cap(w, super_blocks), hit_cap(w, super_blocks, R))
     n_batches = -(-len(rows) // R)
     padded = rows + [(-1, 0, 0, 0)] * (n_batches * R - len(rows))
-    acc: dict[int, tuple[int, list, list]] = {}
-    for b in range(n_batches):
-        batch = padded[b * R:(b + 1) * R]
-        words, nv, left = pack_join_batch(seqs, batch, row_lanes, device)
+    pin = device.type == "cuda"
+
+    def pack(b):
+        return pack_join_host(seqs, padded[b * R:(b + 1) * R], row_lanes,
+                              pin)
+
+    def dispatch(tens, emitcap, cap_total):
+        out = join_rows(*tens, table, k, w, super_blocks, emitcap, cap_total)
+        return out, state.fetch(torch.stack(out[:2]))
+
+    # per batch: [inputs, (n_min, n_hit, f_pos, f_id), counts' fetch], then
+    # at its harvest (counts, fetch of the hit prefix)
+    pend: list = [None] * n_batches
+    done: list = [None] * n_batches
+
+    def harvest(b):
+        tens, out, cfetch = pend[b]
+        nm, nh = state.fetched(cfetch)
         emitcap, cap_total = caps
-        while True:
-            n_min, n_hit, f_pos, f_id = join_rows(
-                words, nv, left, table, k, w, super_blocks, emitcap,
-                cap_total)
-            nm, nh = torch.stack([n_min, n_hit]).cpu().numpy()
-            if nm.max() <= emitcap and nh.sum() <= cap_total:
-                break
+        while nm.max() > emitcap or nh.sum() > cap_total:
             emitcap = _next_pow2(max(emitcap, nm.max()))
             cap_total = _next_pow2(max(cap_total, nh.sum()))
+            out, cfetch = dispatch(tens, emitcap, cap_total)
+            nm, nh = state.fetched(cfetch)
         tot = int(nh.sum())
-        fpos = f_pos[:tot].cpu().numpy()
-        fid = f_id[:tot].cpu().numpy()
+        pend[b] = None
+        done[b] = (nm, nh, state.fetch(out[2][:tot]),
+                   state.fetch(out[3][:tot]))
+
+    prof = os.environ.get("PHI_TPU_JOIN_PROF") == "1"
+    t_pack = t_disp = t_harv = 0.0
+    packer = ThreadPoolExecutor(1)
+    try:
+        fut = packer.submit(pack, 0)
+        for b in range(n_batches):
+            t0 = perf_counter()
+            host = fut.result()
+            t1 = perf_counter()
+            t_pack += t1 - t0
+            if b + 1 < n_batches:
+                fut = packer.submit(pack, b + 1)
+            tens = state.upload(host, device)
+            del host
+            pend[b] = [tens, *dispatch(tens, *caps)]
+            t2 = perf_counter()
+            t_disp += t2 - t1
+            if b >= WINDOW:
+                harvest(b - WINDOW)
+                t_harv += perf_counter() - t2
+        t0 = perf_counter()
+        for b in range(max(0, n_batches - WINDOW), n_batches):
+            harvest(b)
+        t_harv += perf_counter() - t0
+    finally:
+        packer.shutdown(wait=False, cancel_futures=True)
+        if prof:
+            import sys
+            sys.stderr.write(
+                f"[join-prof] batches={n_batches} pack_wait={t_pack:.3f} "
+                f"dispatch={t_disp:.3f} harvest={t_harv:.3f}\n")
+    acc: dict[int, tuple[int, list, list]] = {}
+    for b in range(n_batches):
+        nm, nh, pfetch, ifetch = done[b]
+        fpos, fid = state.fetched(pfetch), state.fetched(ifetch)
         off = 0
-        for j, (si, start, _, _) in enumerate(batch):
+        for j, (si, start, _, _) in enumerate(padded[b * R:(b + 1) * R]):
             if si < 0:
                 continue
             n_acc, pos_parts, id_parts = acc.get(si, (0, [], []))

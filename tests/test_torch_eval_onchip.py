@@ -5,7 +5,9 @@ keys in the same order, and every field equal but the walls, the timings
 and the RSS, and the fields that name what ran it (backend, device, device
 count, the device-memory figure and its source), which the port sets from
 its own device: on the CPU "cpu", one device and the memory model's total
-(source "analytic"), where phi_tpu's CPU backend reports no memory."""
+(source "analytic"), where phi_tpu's CPU backend reports no memory. The
+port's record adds `caches`, each run's cache record: the caches are
+dropped before the warm run, so it packs, stores and uploads again."""
 
 import json
 
@@ -34,7 +36,15 @@ def test_record_matches_jax(caches):
     args = (4, 20_000, 2.0, 3, 2, 1)
     got = onchip.run(*args, device="cpu")
     want = jonchip.run(*args)
-    assert list(got) == list(want)
+    assert [k for k in got if k != "caches"] == list(want)
+    assert len(got["caches"]) == 2
+    for run in got["caches"]:
+        assert run["pack_slot"]["hits"] == 0
+        assert run["pack_slot"]["stores"] == 1
+        assert run["pack_slot_bytes"] > 0
+        assert run["dev_cache"]["content_hits"] == 0
+        assert run["dev_cache"]["builds"] >= 3
+    assert got["caches"][1]["esrc_slot"] == {"hits": 1, "builds": 0}
     for key in set(want) - TIME_KEYS - DEVICE_KEYS:
         assert got[key] == want[key], key
     for key in ("warm", "warm_calm"):

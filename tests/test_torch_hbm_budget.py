@@ -88,6 +88,7 @@ def test_anchor_rows_equal_the_port_tensors(tmp_path, monkeypatch):
     (_, graph), reads = _instance(tmp_path)
     spectrum = _spectrum(reads, k, w)
     seen = {}
+    tdp.clear_dev_cache()  # a cold run: walk_mat and its hashes are built
     for module, name in ((dv, "_finalize"), (dv, "build_ph"),
                          (dv, "_kmer_stats"), (state, "cuckoo_tensors")):
         _spy(monkeypatch, module, name, seen)
@@ -215,12 +216,15 @@ def test_stream_rule_flips_where_the_model_says(monkeypatch):
                                                  - 1e-3))
     assert tdp.stream_w(H, P, L, n, cuda)
     # the model's own choice at a capacity: the same flip, with what the
-    # solve finds allocated (the retained columns and the statics) held
+    # solve finds allocated (the retained columns, the statics and what
+    # the caches keep: walk_mat and its hashes, the packed-batch slot) held
     monkeypatch.delenv("PHI_TPU_STREAM_W_GB")
-    kw = dict(windows=10 ** 9, n_vtx=P, n_esrc=H * P // 16)
+    kw = dict(windows=10 ** 9, n_vtx=P, n_esrc=H * P // 16,
+              pack_slot=10 ** 8)
     held = hb.budget(H, P, L, 10 ** 6, n, 10 ** 8, stream_w=False,
                      capacity=1 << 40, **kw)["per_device_bytes"]["solve"]
-    held = sum(v for k, v in held.items() if k.startswith(("switch", "occ")))
+    held = sum(v for k, v in held.items()
+               if k.startswith(("switch", "occ", "packed", "device cache")))
     for cap, streams in ((held + need, False), (held + need - 1, True)):
         got = hb.budget(H, P, L, 10 ** 6, n, 10 ** 8, capacity=cap, **kw)
         assert got["stream_w"] is streams
