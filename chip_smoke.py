@@ -157,10 +157,21 @@ Phases, in order; any failure exits non-zero:
      segment cut in two) misses the slot: its key holds the node
      lengths; the same per-walk minimizer counts, and the DeviceOcc of a
      run with the slot emptied.
-Phases 4-16 set every kernel's launch count to 0 just before each run and
+ 18. the mesh's measured collectives (eval.mesh_trace.run) on 4 shards of
+     cuda:0: (a) after phase 14, the phase-4 instance (49 x 5 Mbp, 1x, -k
+     31 -w 25 -R 100) end to end, the pipeline on one device (rows3) and
+     on the mesh (rows, seq), the two FASTAs byte-identical; (b) after
+     phase 15, its 49 x 46 Mbp instance, the solve only. Each: the sharded
+     exact solve warm, then counted by parallel.sharded.count_collectives,
+     bit-equal to the uncounted run and to solve_dp's on the same tables
+     (M, end_min, sweeps); every executed sweep and every vote counted
+     alike, and one sweep with its vote equal to the closed form
+     (eval.mesh_trace.sweep_closed_form); one line of the record's walls,
+     sweeps, per-kind calls and bytes, host syncs and launches.
+Phases 4-18 set every kernel's launch count to 0 just before each run and
 read them just after; the kernels JSON adds the launches of phase 13, of
-phase 14's mesh run (14b) and of phases 15's and 16's runs to those of
-the phase that first runs each kernel. The second-to-last line is the
+phase 14's mesh run (14b), of phases 15's and 16's runs and of phase 18 to
+those of the phase that first runs each kernel. The second-to-last line is the
 kernels JSON, the last the device JSON. Instances are generated from a
 seed into phi_tpu_torch/_build/scale/; the two largest and phase 16's
 panel by child processes, phase 6's and phase 16's started with the
@@ -1260,6 +1271,49 @@ def phase14(big, chrom, small, dev, main_fa: str, main_report, small_fa,
         return fail(f"phase 14d: the throughput runner exited {rc} or ran "
                     f"no seq kernel: {err[-2000:]}")
     log(f"phase 14: {time.time() - t14:.3f} s in all ({CARD})")
+    return 0
+
+
+def phase18(label: str, dev, shape, launches, skip_e2e: bool) -> int:
+    """Phase 18 (`label` a or b): eval.mesh_trace.run on the instance
+    `shape` (haplotypes, length, coverage; seed 0) over 4 shards of `dev`,
+    the launches counted from 0 and added to `launches`. Returns 0, or 1
+    after a failure line."""
+    from phi_tpu_torch.eval import mesh_trace
+    zero_launches()
+    t0 = time.time()
+    rec = mesh_trace.run(*shape, 0, skip_e2e=skip_e2e, device=dev, shards=4)
+    wall, n = time.time() - t0, read_launches()
+    comm = rec["collectives"]
+    keys = ("n_devices", "mesh", "byte_identical_mesh_vs_single",
+            "wall_single_s", "wall_mesh_s", "solve_wall_mesh_s",
+            "solve_wall_single_s", "solve_bit_equal_mesh_vs_single",
+            "solve_bit_equal_counted_vs_not", "n_sweeps", "n_vtx",
+            "n_layers", "block", "per_sweep_mb_per_device",
+            "closed_form_per_sweep")
+    log(f"phase 18{label} mesh_trace {shape} (haplotypes, length, coverage)"
+        f", {wall:.3f} s in all ({rec['device']}): " + json.dumps(
+            {**{k: rec[k] for k in keys}, "collectives": comm,
+             "launches": {k: n[k] for k in ("rows3", "rows", "seq")}}))
+    for kern in ("rows3", "rows", "seq"):
+        launches[kern] += n[kern]
+    if not skip_e2e and rec["byte_identical_mesh_vs_single"] is not True:
+        return fail(f"phase 18{label}: the mesh FASTA differs from the "
+                    f"single-device run's")
+    if not rec["solve_bit_equal_mesh_vs_single"]:
+        return fail(f"phase 18{label}: the sharded M, end_min or sweeps "
+                    f"differ from solve_dp's")
+    if not rec["solve_bit_equal_counted_vs_not"]:
+        return fail(f"phase 18{label}: the counted solve differs from the "
+                    f"uncounted one")
+    if not comm["uniform"] or comm["per_sweep"] != \
+            rec["closed_form_per_sweep"]:
+        return fail(f"phase 18{label}: the per-sweep counts differ from "
+                    f"the closed form (or from sweep to sweep)")
+    want = (n["rows3"] > 0 and n["rows"] > 0 and n["seq"] == 4
+            if not skip_e2e else n["rows3"] > 0 and not n["rows"] + n["seq"])
+    if not want:
+        return fail(f"phase 18{label} launches: {json.dumps(n)}")
     return 0
 
 
@@ -2557,8 +2611,16 @@ def main(argv=None) -> int:
                launches):
         return 1
 
+    # --- phase 18a: the mesh's collectives, 49 x 5 Mbp end to end ---
+    if phase18("a", dev, (49, 5_000_000, 1.0), launches, skip_e2e=False):
+        return 1
+
     # --- phase 15: chromosome scale, 49 x 46 Mbp ---
     if phase15(dev, big, save_run.graph, launches, models):
+        return 1
+
+    # --- phase 18b: the mesh's collectives, 49 x 46 Mbp, the solve ---
+    if phase18("b", dev, CHROM46, launches, skip_e2e=True):
         return 1
 
     # --- phase 16g: phase 13's matrix CSV read back ---

@@ -41,6 +41,17 @@ class AnchorTables:
     per_hap_anchors: np.ndarray     # int64 [H] retained occurrences (incl. span 0)
     device_occ: object | None = None  # anchors.device.DeviceOcc
 
+    @classmethod
+    def on_device(cls, per_hap_minimizers, occ, spectrum_size: int
+                  ) -> "AnchorTables":
+        """The tables of the device anchors' DeviceOcc `occ`, the host
+        columns left for materialize_device."""
+        return cls(occ_hap=None, occ_start=None, occ_end=None, occ_kmer=None,
+                   occ_weight=None, n_model_kmers=occ.n_model,
+                   spectrum_size=spectrum_size, filtered_kmers=occ.filtered,
+                   per_hap_minimizers=per_hap_minimizers,
+                   per_hap_anchors=occ.per_hap_anchors, device_occ=occ)
+
     def materialize_device(self) -> None:
         if self.device_occ is None or self.occ_hap is not None:
             return

@@ -20,10 +20,16 @@ shards on one card or eight on the CPU. The dp replicas of a hap x sp block
 compute the same values under shard_map; here the block runs once, on its
 dp = 0 device. torch.distributed carries only the multi-process spectrum
 merge (dist.py): NCCL will not put two ranks on one card.
+
+`count_collectives()` counts what the helpers move while it is active
+(`CollectiveCount`); the solver marks its scopes (setup, each sweep, each
+convergence vote, the end), so one sweep's traffic reads apart from the
+one-off terms. With no count active the helpers do nothing more.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -111,6 +117,101 @@ def prepare_sharded_tables(tables, mesh: Mesh):
     return S, B, sv, wl
 
 
+# ----------------------------------------------------- collective counts
+
+KINDS = ("all-reduce", "all-gather", "collective-permute")
+
+
+def _scope_record() -> dict:
+    return {"calls": dict.fromkeys(KINDS, 0),
+            "out_bytes": dict.fromkeys(KINDS, 0),
+            "moved_bytes": dict.fromkeys(KINDS, 0), "host_syncs": 0}
+
+
+class CollectiveCount:
+    """What the collective helpers did while count_collectives was active,
+    in scopes in the order the solver marked them: `setup`, one `sweep` per
+    executed sweep, one `vote` per convergence vote, `end` (collectives
+    before the first mark go to `other`). Per scope and kind, summed over
+    the shards that take part in each call:
+      calls        each shard's part in a collective (in the JAX package's
+                   terms, one HLO instruction executed on one device);
+      out_bytes    the bytes of the collective's output on each shard (an
+                   HLO instruction's output shape);
+      moved_bytes  the bytes of every tensor handed from one shard index to
+                   another, even where both lie on one card: the traffic
+                   that would cross NVLink with one card per shard. The
+                   helpers reduce onto a group's first shard and broadcast
+                   from it, so a reduction over G shards moves 2 (G - 1)
+                   tensors; the vote reads its result on the host instead
+                   of broadcasting it, and moves G - 1 flags.
+    and per scope `host_syncs`, the device-to-host reads the solver waits
+    on (the vote's bool, end_min's float). A group of one shard runs no
+    collective and counts none. wall_s gives the host seconds from each
+    mark to the next: a sweep's is the time to queue it, its vote's the
+    wait for the device to finish it."""
+
+    def __init__(self):
+        self.scopes: list[tuple[str, dict]] = []
+        self._starts: list[float] = []
+        self._stop = None
+
+    def mark(self, name: str) -> None:
+        self.scopes.append((name, _scope_record()))
+        self._starts.append(time.perf_counter())
+
+    def close(self) -> None:
+        self._stop = time.perf_counter()
+
+    def _current(self) -> dict:
+        if not self.scopes:
+            self.mark("other")
+        return self.scopes[-1][1]
+
+    def add(self, kind: str, shards: int, out_bytes: int,
+            moved_bytes: int) -> None:
+        if shards > 1:
+            rec = self._current()
+            rec["calls"][kind] += shards
+            rec["out_bytes"][kind] += out_bytes
+            rec["moved_bytes"][kind] += moved_bytes
+
+    def sync(self) -> None:
+        self._current()["host_syncs"] += 1
+
+    def records(self, name: str) -> list[dict]:
+        """The records of every scope marked `name`, in order."""
+        return [rec for n, rec in self.scopes if n == name]
+
+    def wall_s(self, name: str) -> float:
+        """Host seconds in the scopes marked `name`, each from its mark to
+        the next (the last to the count's close)."""
+        ends = self._starts[1:] + [self._stop]
+        return sum(e - s for (n, _), s, e in zip(self.scopes, self._starts,
+                                                  ends) if n == name)
+
+
+_COUNT: CollectiveCount | None = None  # the active count, if any
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Count the collectives run inside the block; yields the
+    CollectiveCount. The previous count, if any, is restored after."""
+    global _COUNT
+    prev, _COUNT = _COUNT, CollectiveCount()
+    try:
+        yield _COUNT
+    finally:
+        _COUNT.close()
+        _COUNT = prev
+
+
+def _mark(name: str) -> None:
+    if _COUNT is not None:
+        _COUNT.mark(name)
+
+
 # ------------------------------------------------------------ collectives
 
 def _pmin(xs: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -118,6 +219,9 @@ def _pmin(xs: list[torch.Tensor]) -> list[torch.Tensor]:
     acc = xs[0]
     for x in xs[1:]:
         acc = torch.minimum(acc, x.to(acc.device))
+    if _COUNT is not None:
+        n, b = len(xs), acc.nbytes
+        _COUNT.add("all-reduce", n, n * b, 2 * (n - 1) * b)
     return [acc.to(x.device) for x in xs]
 
 
@@ -126,12 +230,19 @@ def _psum(xs: list[torch.Tensor]) -> torch.Tensor:
     acc = xs[0]
     for x in xs[1:]:
         acc = acc + x.to(acc.device)
+    if _COUNT is not None:
+        n, b = len(xs), acc.nbytes
+        _COUNT.add("all-reduce", n, n * b, (n - 1) * b)
     return acc
 
 
 def _pmax(flags: list[torch.Tensor]) -> bool:
     """Whether any shard's flag is set (the convergence vote)."""
     dev = flags[0].device
+    if _COUNT is not None:
+        n, b = len(flags), flags[0].nbytes
+        _COUNT.add("all-reduce", n, n * b, (n - 1) * b)
+        _COUNT.sync()
     return bool(torch.stack([f.to(dev) for f in flags]).any())
 
 
@@ -144,12 +255,18 @@ def _all_gather(xs: list[torch.Tensor], dim: int = 0,
         parts = [y.to(x.device) for y in xs]
         out.append(torch.cat(parts, dim) if tiled
                    else torch.stack(parts, dim))
+    if _COUNT is not None:
+        n, b = len(xs), sum(x.nbytes for x in xs)
+        _COUNT.add("all-gather", n, n * b, (n - 1) * b)
     return out
 
 
 def _left_halo(xs: list[torch.Tensor]) -> list[torch.Tensor]:
     """The ppermute of one sp row: shard j receives shard j - 1's tensor
     (INF for the first shard)."""
+    if _COUNT is not None:
+        n, b = len(xs), xs[0].nbytes
+        _COUNT.add("collective-permute", n, n * b, (n - 1) * b)
     return [torch.full_like(xs[0], _INF)] + [
         xs[j - 1].to(xs[j].device) for j in range(1, len(xs))]
 
@@ -333,6 +450,7 @@ class _Solver:
         self.ns = mesh.shape["sp"]
 
     def setup(self, state_vertex, walk_len, esrc_h, esrc_p, esrc_target):
+        _mark("setup")
         self.blocks, self.Hs, self.Ps = _blocks(
             self.mesh, state_vertex, walk_len, esrc_h, esrc_p, esrc_target)
 
@@ -353,19 +471,28 @@ class _Solver:
         by more than 1e-4, capped at max_sweeps): (M blocks, sweeps)."""
         M0 = [torch.full((self.Hs, self.Ps), _INF, device=b.device)
               for b in self.blocks]
+        _mark("sweep")
         M1 = self.sweep(M0, S, B, W)
+        _mark("sweep")
         M = self.sweep(M1, S, B, W)
         it = 2
-        while it < max_sweeps and _pmax(
-                [(m < p - 1e-4).any() for m, p in zip(M, M1)]):
+        while it < max_sweeps:
+            _mark("vote")
+            if not _pmax([(m < p - 1e-4).any() for m, p in zip(M, M1)]):
+                break
+            _mark("sweep")
             M1, M = M, self.sweep(M, S, B, W)
             it += 1
         return M, it
 
     def end_min(self, M, B) -> float:
+        _mark("end")
         ends = [torch.where(b.is_end, _exit(b, m, bb), _INF).min()
                 for b, m, bb in zip(self.blocks, M, B)]
-        return float(_pmin(ends)[0])
+        end = _pmin(ends)[0]
+        if _COUNT is not None:
+            _COUNT.sync()
+        return float(end)
 
 
 def sharded_solve(mesh: Mesh, *, R: float, n_vtx: int, max_sweeps: int = 256):
@@ -381,7 +508,8 @@ def sharded_solve(mesh: Mesh, *, R: float, n_vtx: int, max_sweeps: int = 256):
         sol.setup(state_vertex, walk_len, esrc_h, esrc_p, esrc_target)
         Sb, Bb = sol.split(S), sol.split(B)
         M, sweeps = sol.fixpoint(Sb, Bb, None, max_sweeps)
-        return _gather(M, sol.blocks), sol.end_min(M, Bb), sweeps
+        end = sol.end_min(M, Bb)
+        return _gather(M, sol.blocks), end, sweeps
 
     return run
 
@@ -400,7 +528,8 @@ def sharded_solve_exact(mesh: Mesh, *, R: float, n_vtx: int, n_layers: int,
         sol.setup(state_vertex, walk_len, esrc_h, esrc_p, esrc_target)
         Sb, Bb, Wb = sol.split(S), sol.split(B), sol.split(W)
         M, sweeps = sol.fixpoint(Sb, Bb, Wb, max_sweeps)
-        return _gather(M, sol.blocks), sol.end_min(M, Bb), sweeps
+        end = sol.end_min(M, Bb)
+        return _gather(M, sol.blocks), end, sweeps
 
     return run
 
@@ -474,57 +603,77 @@ def _pad_planes(x: torch.Tensor, Hp: int, Pp: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, Pp - P, 0, Hp - H))
 
 
+def _padded_statics(tables, mesh: Mesh):
+    """The padded plane shape (Hp, Pp) and the sharded solvers' last five
+    arguments: state_vertex and walk_len padded to the mesh, and the esrc
+    tables."""
+    H, P = tables.state_vertex.shape
+    nh, ns = mesh.shape["hap"], mesh.shape["sp"]
+    sv = _pad_to(_pad_to(tables.state_vertex, 0, nh, -1), 1, ns, -1)
+    wl = _pad_to(tables.walk_len, 0, nh, 0)
+    return ((-(-H // nh) * nh, -(-P // ns) * ns),
+            (sv, wl, tables.esrc_h, tables.esrc_p, tables.esrc_target))
+
+
+def exact_solver_args(tables, mesh: Mesh):
+    """sharded_solve_exact's arguments for exact-mode tables, as
+    solve_dp_sharded gives them: S, B and W built by solve.dp.build_sbw on
+    the first shard's device from the device occurrence columns (or the
+    host ones) and zero-padded to the mesh, then _padded_statics'. Returns
+    (arguments, B unpadded)."""
+    from phi_tpu_torch.solve.dp import build_sbw
+    dev0 = mesh.flat[0]
+    H, P = tables.state_vertex.shape
+    d = tables.occ_dev
+    if d is not None:
+        oh, os_, osp, ow = d.dev_hap, d.dev_s, d.dev_span, d.dev_w
+        if tables.occ_weight is not None:
+            ow = state.occ_weights(tables.occ_weight, dev0)
+    else:
+        oh, os_, osp, ow = state.occ_tensors(
+            tables.occ_hap, tables.occ_start,
+            tables.occ_end - tables.occ_start, tables.occ_weight, dev0)
+    S, B, W = build_sbw(oh, os_, osp, ow, H, P, tables.n_layers)
+    (Hp, Pp), statics = _padded_statics(tables, mesh)
+    return tuple(_pad_planes(x, Hp, Pp) for x in (S, B, W)) + statics, B
+
+
 def solve_dp_sharded(tables, mesh: Mesh, max_sweeps: int = 256):
     """Drop-in sharded counterpart of solve.dp.solve_dp: the same
     (solution, ends, n_sweeps, dp_objective), computed over the mesh (lanes
     on hap, positions on sp). Exact mode builds S, B and W with
     solve.dp.build_sbw on the first shard's device and splits them into
-    blocks; bracket mode (n_layers None) runs the search fixpoint, and the
-    optimistic one (S := B) for the bound. The solution (M, ent, sv_at) is
-    on the first shard's device, as decode_path takes it."""
+    blocks (exact_solver_args); bracket mode (n_layers None) runs the
+    search fixpoint, and the optimistic one (S := B) for the bound. The
+    solution (M, ent, sv_at) is on the first shard's device, as
+    decode_path takes it."""
     from phi_tpu_torch.solve.dp import (LAST_TIMINGS, DeviceSolution, _ends,
-                                        _sync, _warn_cap, build_sbw,
-                                        esrc_ent)
+                                        _sync, _warn_cap, esrc_ent)
     LAST_TIMINGS.clear()
     t0 = time.time()
     dev0 = mesh.flat[0]
     H, P = tables.state_vertex.shape
-    nh, ns = mesh.shape["hap"], mesh.shape["sp"]
-    Hp, Pp = -(-H // nh) * nh, -(-P // ns) * ns
-    sv = _pad_to(_pad_to(tables.state_vertex, 0, nh, -1), 1, ns, -1)
-    wl = _pad_to(tables.walk_len, 0, nh, 0)
     eh, ep, et, sv0, wl0 = state.solver_static(tables, dev0)
-    args = (sv, wl, tables.esrc_h, tables.esrc_p, tables.esrc_target)
     if tables.n_layers is not None:
-        d = tables.occ_dev
-        if d is not None:
-            oh, os_, osp, ow = d.dev_hap, d.dev_s, d.dev_span, d.dev_w
-            if tables.occ_weight is not None:
-                ow = state.occ_weights(tables.occ_weight, dev0)
-        else:
-            oh, os_, osp, ow = state.occ_tensors(
-                tables.occ_hap, tables.occ_start,
-                tables.occ_end - tables.occ_start, tables.occ_weight, dev0)
-        S, B, W = build_sbw(oh, os_, osp, ow, H, P, tables.n_layers)
+        args, B = exact_solver_args(tables, mesh)
         _sync(dev0)
         t1 = time.time()
         solver = sharded_solve_exact(mesh, R=tables.R, n_vtx=tables.n_vtx,
                                      n_layers=tables.n_layers,
                                      max_sweeps=max_sweeps)
-        M, lb_term, sweeps = solver(_pad_planes(S, Hp, Pp),
-                                    _pad_planes(B, Hp, Pp),
-                                    _pad_planes(W, Hp, Pp), *args)
-        del S, W
+        M, lb_term, sweeps = solver(*args)
+        del args
     else:
+        (Hp, Pp), statics = _padded_statics(tables, mesh)
         t = tables.dense()
         S, B = state.credit_tensors(t, dev0)
         t1 = time.time()
         solver = sharded_solve(mesh, R=tables.R, n_vtx=tables.n_vtx,
                                max_sweeps=max_sweeps)
         Bp = _pad_planes(B, Hp, Pp)
-        M, _, sweeps = solver(_pad_planes(S, Hp, Pp), Bp, *args)
+        M, _, sweeps = solver(_pad_planes(S, Hp, Pp), Bp, *statics)
         # the valid lower bound: the optimistic entry charge S := B
-        _, lb_term, _ = solver(Bp, Bp, *args)
+        _, lb_term, _ = solver(Bp, Bp, *statics)
     _sync(dev0)
     t2 = time.time()
     M = M[:H, :P].contiguous()

@@ -199,13 +199,8 @@ def run_pipeline(gfa_path: str, reads_path: str | None, out_path: str | None,
             per_hap_min = [n for n, _, _ in hits]
         else:
             per_hap_min, dev_occ = dres
-            anchors = AnchorTables(
-                occ_hap=None, occ_start=None, occ_end=None, occ_kmer=None,
-                occ_weight=None, n_model_kmers=dev_occ.n_model,
-                spectrum_size=len(spectrum[0]),
-                filtered_kmers=dev_occ.filtered,
-                per_hap_minimizers=per_hap_min,
-                per_hap_anchors=dev_occ.per_hap_anchors, device_occ=dev_occ)
+            anchors = AnchorTables.on_device(per_hap_min, dev_occ,
+                                             len(spectrum[0]))
         for h in range(graph.num_walks):
             plog.raw(f"{graph.walk_names[h]} : {per_hap_min[h]}")
         plog.log("ILP_function", "Haplotypes sketched")

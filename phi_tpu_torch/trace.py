@@ -34,6 +34,19 @@ import torch
 HAPS, LENGTH, COVERAGE = 49, 5_000_000, 1.0
 
 
+def card_line() -> str:
+    """The first card's name and power limit as nvidia-smi gives them, or
+    "" where it gives nothing."""
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return ""
+    lines = smi.stdout.strip().splitlines()
+    return lines[0] if lines else ""
+
+
 def merged_us(intervals) -> float:
     """Length of the union of (start, end) intervals."""
     total = 0.0
@@ -111,10 +124,7 @@ def main(argv: list[str] | None = None) -> int:
     res["timings"] = timings
     res["by_name"] = [dict(d, name=d["name"][:120])
                       for d in res["by_name"][:25]]
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    res["card"] = smi.stdout.strip().splitlines()[0] if smi.stdout else ""
+    res["card"] = card_line()
     res["instance"] = {"haps": HAPS, "length": LENGTH, "coverage": COVERAGE,
                        "k": k}
     print(json.dumps(res), flush=True)

@@ -200,7 +200,8 @@ def test_port_imports_nothing_of_phi_tpu_or_jax():
             "phi_tpu_torch/eval/floor_diag.py",
             "phi_tpu_torch/eval/merge_gt.py", "phi_tpu_torch/eval/plots.py",
             "phi_tpu_torch/eval/datasets.py",
-            "phi_tpu_torch/eval/competitors.py"} <= rel
+            "phi_tpu_torch/eval/competitors.py",
+            "phi_tpu_torch/eval/mesh_trace.py"} <= rel
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
