@@ -141,8 +141,8 @@ Phases, in order; any failure exits non-zero:
      add up, the six other samples' shards reported missing; (g) phase
      13b's matrix CSV through read_matrix_csv (its reads, coverages and
      the 1x edit); no figure is drawn.
- 17. the join pipelines and the cross-run device caches, under
-     PHI_TPU_JOIN_PROF=1 (its [danchor-prof] lines logged): (a) after
+ 17. the join pipelines and the cross-run device caches, with the
+     join's spans (the sketch_haps_* keys of timings) logged: (a) after
      15d, the warm chromosome run's join_anchors_device alone with
      PHI_TPU_PACK_WORKERS=1 and with the default 3: per_hap_min and every
      DeviceOcc column array-equal to the warm run's, each wall, and the
@@ -1931,26 +1931,28 @@ def env_set(**kv):
                 os.environ[k] = v
 
 
-def prof_lines(err: str) -> list[str]:
-    """The join profiler's lines of a stderr."""
-    return [ln for ln in err.splitlines()
-            if ln.startswith(("[danchor-prof]", "[join-prof]"))]
+def join_spans(timings: dict) -> str:
+    """The join's spans of a run's timings (the sketch_haps_* keys), as
+    name=seconds."""
+    n = len("sketch_haps_")
+    return " ".join(f"{k[n:]}={v:.3f}" for k, v in timings.items()
+                    if k.startswith("sketch_haps_"))
 
 
 def phase17a(jargs, jkw, want_min, want) -> int:
     """Phase 17a: the warm chromosome run's join again, alone, with 1 pack
-    worker and with the default 3, under PHI_TPU_JOIN_PROF=1 and with the
-    packed-batch slot off (its batches pass the slot's gate anyway, as
-    they do in the JAX package): per_hap_min
-    and every DeviceOcc column array-equal across the two and to the warm
-    run's, each wall, the profiler's lines and the card's busy share (a
-    second call under torch.profiler, over the first call's wall); then
-    the time of the walks' codes (walk_seq_codes), the part of
+    worker and with the default 3, with the packed-batch slot off (its
+    batches pass the slot's gate anyway, as they do in the JAX package):
+    per_hap_min and every DeviceOcc column array-equal across the two and
+    to the warm run's, each wall, the join's spans and the card's busy
+    share (a second call under torch.profiler, over the first call's
+    wall); then the time of the walks' codes (walk_seq_codes), the part of
     sketch_haps outside the join. Returns 0, or 1 after a failure
     line."""
     import numpy as np
     import torch
     from phi_tpu_torch.anchors import device as danchors
+    from phi_tpu_torch.trace import recording, span
 
     def join():
         out = danchors.join_anchors_device(*jargs, **jkw)
@@ -1960,10 +1962,10 @@ def phase17a(jargs, jkw, want_min, want) -> int:
     walls = {}
     for workers in ("1", "3"):
         # the slot off, so that both pack every batch at any size
-        with env_set(PHI_TPU_PACK_WORKERS=workers, PHI_TPU_JOIN_PROF="1",
+        with env_set(PHI_TPU_PACK_WORKERS=workers,
                      PHI_TPU_PACK_CACHE_MB="0"):
             zero_launches()
-            with stderr_tee() as err:
+            with recording() as spans, span("sketch_haps"):
                 t0 = time.time()
                 got_min, got = join()
                 walls[workers] = time.time() - t0
@@ -1975,8 +1977,7 @@ def phase17a(jargs, jkw, want_min, want) -> int:
             f"wall {walls[workers]:.3f} s, busy {busy:.3f} s (share "
             f"{busy / walls[workers]:.4f}), launches {json.dumps(n)}; "
             f"per_hap_min and DeviceOcc columns equal to the warm run's: "
-            f"{same} ({CARD}); profiler: "
-            + " | ".join(prof_lines(err.getvalue())))
+            f"{same} ({CARD}); spans: " + join_spans(spans))
         if not same or n["rows3"] <= 0:
             return fail(f"phase 17a: {workers} worker(s) gave other arrays "
                         f"or launched no rows3")
@@ -1995,10 +1996,10 @@ def phase17a(jargs, jkw, want_min, want) -> int:
 
 
 def phase17b(big, dev, warm) -> int:
-    """Phase 17b: phase 4 a third time under PHI_TPU_JOIN_PROF=1, hitting
-    the packed-batch slot the cold run stored: the hit logged, the warm
-    run's rows3 launches, its FASTA byte for byte, sketch_haps and
-    solve_tables beside the warm run's; then once with the slot off
+    """Phase 17b: phase 4 a third time, hitting the packed-batch slot the
+    cold run stored: the hit logged, the warm run's rows3 launches, its
+    FASTA byte for byte, the join's spans, sketch_haps and solve_tables
+    beside the warm run's; then once with the slot off
     (PHI_TPU_PACK_CACHE_MB=0), which packs and uploads every batch.
     `warm`: the warm run's (result, launches, FASTA path). Returns 0, or 1
     after a failure line."""
@@ -2011,14 +2012,14 @@ def phase17b(big, dev, warm) -> int:
         out = os.path.join(os.path.dirname(big["gfa"]),
                            f"port_k31_{label.replace(' ', '_')}.fa")
         before = onchip.cache_counts()
-        with env_set(PHI_TPU_JOIN_PROF="1", **env), stderr_tee() as err:
+        with env_set(**env):
             r, wall, n, peak = run_counted(big, out, flags, dev)
         delta = onchip.cache_delta(before, onchip.cache_counts())
         same = same_file(out, fa_w)
         log(f"phase 17b {label}: wall {wall:.3f} s, peak {peak} B, "
             f"launches {json.dumps(n)}, FASTA == phase 4 warm: {same}; "
-            f"caches {json.dumps(delta)} ({CARD}); profiler: "
-            + " | ".join(prof_lines(err.getvalue())))
+            f"caches {json.dumps(delta)} ({CARD}); spans: "
+            + join_spans(r.timings))
         hits = delta["pack_slot"]["hits"]
         if not same or n["rows3"] != n_w["rows3"] \
                 or hits != (1 if label == "third" else 0):
@@ -2086,9 +2087,8 @@ def phase17d(small, dev) -> int:
 
     def join(g):
         seqs = [g.walk_seq_codes(h) for h in range(g.num_walks)]
-        with env_set(PHI_TPU_JOIN_PROF="1"):
-            return danchors.join_anchors_device(g, seqs, 31, 25, *sp, 1.0,
-                                                device=dev)
+        return danchors.join_anchors_device(g, seqs, 31, 25, *sp, 1.0,
+                                            device=dev)
 
     zero_launches()
     first = join(graphs[0])

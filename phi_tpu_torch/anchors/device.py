@@ -43,7 +43,6 @@ import os
 import sys
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-from time import perf_counter
 
 import numpy as np
 import torch
@@ -59,6 +58,7 @@ from phi_tpu_torch.sketch.kernels import (BLK, HALO_PAD, NARROW_MAX_K, ROWS,
                                           pack_rows_2bit, row_base_nodes)
 from phi_tpu_torch.solve.dp import _dev_cached, content_keyed
 from phi_tpu_torch.solve.prep import max_kmer_span
+from phi_tpu_torch.trace import span
 
 _M32 = 0xFFFFFFFF
 # independent odd multipliers for the two polynomial prefix-hash moduli
@@ -312,21 +312,10 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
     result is the same for any worker count, and reads each batch's
     counts WINDOW batches later. A worker's exception is raised here. The
     packed batches are kept on the device for a re-run on the same graph
-    (the slot above). PHI_TPU_JOIN_PROF=1 writes the stage times and the
-    pack_wait / dispatch / harvest totals to stderr as [danchor-prof]
-    lines, =2 also each batch's harvest."""
+    (the slot above). Spans (trace.py): plan, cuckoo, fingerprint, join
+    (its batches' pack_wait, dispatch and harvest), walk_hashes and
+    filter."""
     device = torch.device(device)
-    prof_lvl = os.environ.get("PHI_TPU_JOIN_PROF", "0")
-    prof = prof_lvl in ("1", "2")
-    t_mark = perf_counter()
-
-    def mark(label: str) -> None:
-        nonlocal t_mark
-        if prof:
-            now = perf_counter()
-            sys.stderr.write(f"[danchor-prof] {label}: {now - t_mark:.3f}\n")
-            t_mark = now
-
     R = rows_per_call or ROWS
     SB = super_blocks or SUPER_BLOCKS
     H = graph.num_walks
@@ -337,27 +326,30 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
         _fallback(f"k + w - 2 = {k + w - 2} > {HALO_PAD} (the kernels' "
                   f"halo)")
         return None
-    span = max_kmer_span(graph, k)
-    if span > _MAX_SPAN - 1:
+    with span("plan"):
+        span_k = max_kmer_span(graph, k)
+    if span_k > _MAX_SPAN - 1:
         # the packed interval clamps its span to 63; the host hit path's
         # are exact (without empty nodes a span is at most k - 1 <= 62)
-        _fallback(f"k-mers may span {span} > {_MAX_SPAN - 1}: spans past "
+        _fallback(f"k-mers may span {span_k} > {_MAX_SPAN - 1}: spans past "
                   f"{_MAX_SPAN - 1} walk positions (zero-length node chains)")
         return None
     if int(graph.walk_len.max(initial=0)) >= 1 << 26:
         raise ValueError("a walk has >= 2^26 positions: the packed "
                          "(s << 6) | span interval overflows 32 bits")
     row_lanes = (SB + 1) * BLK
-    rows = plan_rows(seqs, k, w, SB)
+    with span("plan"):
+        rows = plan_rows(seqs, k, w, SB)
     if not rows:  # N walks, or no walk as long as one window
         return None
-    mark("rows+seqscan")
     cumlens = graph.walk_node_cumlen
     # the reference's route choice: v3 needs the cuckoo table and a node
     # chop of at most one start per 4 bases; k > 31 runs only on v3
-    ck = make_cuckoo(np.asarray(sp_hi), np.asarray(sp_lo))
-    S_cap = _row_start_cap(cumlens, rows, row_lanes) if ck is not None \
-        else None
+    with span("cuckoo"):
+        ck = make_cuckoo(np.asarray(sp_hi), np.asarray(sp_lo))
+    with span("plan"):
+        S_cap = _row_start_cap(cumlens, rows, row_lanes) \
+            if ck is not None else None
     dense = S_cap is not None and S_cap * 4 > row_lanes
     wide = k > NARROW_MAX_K
     if wide and (ck is None or dense):
@@ -378,11 +370,11 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
     n_batches = -(-len(rows) // R)
     padded = rows + [(-1, 0, 0, 0)] * (n_batches * R - len(rows))
 
-    if ck is not None:
-        tkey, tid, seed = state.cuckoo_tensors(ck, device)
-    else:
-        table = mixed_tensors(sp_hi, sp_lo, device)
-    mark("make_cuckoo")
+    with span("cuckoo"):
+        if ck is not None:
+            tkey, tid, seed = state.cuckoo_tensors(ck, device)
+        else:
+            table = mixed_tensors(sp_hi, sp_lo, device)
 
     # the slot: the reference's estimate of the run's batch bytes
     cache_mb = int(os.environ.get("PHI_TPU_PACK_CACHE_MB", "768"))
@@ -390,8 +382,8 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
                            + (S_cap * 4 if use_v3 else row_lanes))
     cache_key = cached = None
     if n_batches * est_batch_bytes <= cache_mb << 20:
-        fp = graph_fingerprint(graph)
-        mark("fingerprint")
+        with span("fingerprint"):
+            fp = graph_fingerprint(graph)
         if fp is not None:
             cache_key = fp + (k, w, R, SB, route, S_cap, str(device))
             slot = _PACK_CACHE.get("slot")
@@ -424,124 +416,105 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
         return state.host_batch(
             *pack_batch(seqs, cumlens, batch, row_lanes, S_cap), pin=pin)
 
-    buf_se = torch.zeros(CAP, dtype=torch.int64, device=device)
-    buf_id = torch.full((CAP,), -1, dtype=torch.int64, device=device)
-    buf_hap = torch.zeros(CAP, dtype=torch.int64, device=device)
-    total = torch.zeros((), dtype=torch.int64, device=device)
-    lane = torch.arange(cap_total, device=device)
     counts = np.zeros((n_batches, 3, R), np.int64)
     pend: list = [None] * n_batches
-    ahead = max(1, int(os.environ.get("PHI_TPU_PACK_WORKERS", "3")))
-    pool = ThreadPoolExecutor(ahead) if cached is None else None
-    futs: dict = {}
-    t_pack = t_disp = t_harv = 0.0
 
     def harvest(b):
-        nonlocal t_harv
-        t0 = perf_counter()
-        counts[b] = state.fetched(pend[b])
+        with span("harvest"):
+            counts[b] = state.fetched(pend[b])
         pend[b] = None
-        dt = perf_counter() - t0
-        t_harv += dt
-        if prof_lvl == "2":
-            sys.stderr.write(f"[danchor-prof] batch {b} harvest {dt:.3f}\n")
 
-    try:
-        if pool is not None:
-            for b0 in range(min(ahead, n_batches)):
-                futs[b0] = pool.submit(pack, b0)
-        for b in range(n_batches):
-            t0 = perf_counter()
-            if cached is None:
-                host = futs.pop(b).result()
-                if b + ahead < n_batches:
-                    futs[b + ahead] = pool.submit(pack, b + ahead)
-            t1 = perf_counter()
-            t_pack += t1 - t0
-            if cached is None:
-                tens = state.upload(host, device)
-                del host
-                if new_cache is not None:
-                    new_cache.append(tens)
-            else:
-                tens = cached[b]
-            nm, nh, f_se, f_id, f_hap, over = join(tens)
-            del tens
-            # append at the device-side offset; an overflow clamps (and is
-            # caught below) instead of writing out of bounds
-            idx = total.clamp(max=CAP - cap_total) + lane
-            buf_se.index_copy_(0, idx, f_se)
-            buf_id.index_copy_(0, idx, f_id)
-            buf_hap.index_copy_(0, idx, f_hap.clamp(min=0))
-            total += (f_id >= 0).sum()
-            pend[b] = state.fetch(torch.stack([nm, nh, over.long()]))
-            t_disp += perf_counter() - t1
-            if b >= WINDOW:
-                harvest(b - WINDOW)
-        for b in range(max(0, n_batches - WINDOW), n_batches):
-            harvest(b)
-    finally:
-        if pool is not None:
-            pool.shutdown(wait=False, cancel_futures=True)
-        if prof:
-            sys.stderr.write(
-                f"[danchor-prof] batches={n_batches} pack_wait={t_pack:.3f}"
-                f" dispatch={t_disp:.3f} harvest={t_harv:.3f}\n")
-    if new_cache is not None:
-        _PACK_CACHE["slot"] = (cache_key, new_cache)
-        PACK_CACHE_STATS["stores"] += 1
-    pack_bytes = 0 if cache_key is None else \
-        _batches_bytes(_PACK_CACHE["slot"][1])
+    with span("join"):
+        buf_se = torch.zeros(CAP, dtype=torch.int64, device=device)
+        buf_id = torch.full((CAP,), -1, dtype=torch.int64, device=device)
+        buf_hap = torch.zeros(CAP, dtype=torch.int64, device=device)
+        total = torch.zeros((), dtype=torch.int64, device=device)
+        lane = torch.arange(cap_total, device=device)
+        ahead = max(1, int(os.environ.get("PHI_TPU_PACK_WORKERS", "3")))
+        pool = ThreadPoolExecutor(ahead) if cached is None else None
+        futs: dict = {}
+        try:
+            if pool is not None:
+                for b0 in range(min(ahead, n_batches)):
+                    futs[b0] = pool.submit(pack, b0)
+            for b in range(n_batches):
+                if cached is None:
+                    with span("pack_wait"):
+                        host = futs.pop(b).result()
+                    if b + ahead < n_batches:
+                        futs[b + ahead] = pool.submit(pack, b + ahead)
+                with span("dispatch"):
+                    if cached is None:
+                        tens = state.upload(host, device)
+                        del host
+                        if new_cache is not None:
+                            new_cache.append(tens)
+                    else:
+                        tens = cached[b]
+                    nm, nh, f_se, f_id, f_hap, over = join(tens)
+                    del tens
+                    # append at the device-side offset; an overflow clamps
+                    # (and is caught below) instead of writing out of bounds
+                    idx = total.clamp(max=CAP - cap_total) + lane
+                    buf_se.index_copy_(0, idx, f_se)
+                    buf_id.index_copy_(0, idx, f_id)
+                    buf_hap.index_copy_(0, idx, f_hap.clamp(min=0))
+                    total += (f_id >= 0).sum()
+                    pend[b] = state.fetch(torch.stack([nm, nh, over.long()]))
+                if b >= WINDOW:
+                    harvest(b - WINDOW)
+            for b in range(max(0, n_batches - WINDOW), n_batches):
+                harvest(b)
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=False, cancel_futures=True)
+        if new_cache is not None:
+            _PACK_CACHE["slot"] = (cache_key, new_cache)
+            PACK_CACHE_STATS["stores"] += 1
+        pack_bytes = 0 if cache_key is None else \
+            _batches_bytes(_PACK_CACHE["slot"][1])
 
-    total_hits = int(counts[:, 1].sum())
-    if total_hits > CAP - cap_total:
-        _fallback(f"hit buffer overflow ({total_hits} hits > "
-                  f"{CAP - cap_total})")
-        return None
-    over_cap = C if use_v3 else emitcap
-    if counts[:, 2].max(initial=0) > over_cap:
-        what = "rows3 block compaction" if use_v3 else "v2 emitted-lane"
-        _fallback(f"{what} overflow (max {int(counts[:, 2].max())} > "
-                  f"{'C' if use_v3 else 'emitcap'}={over_cap})")
-        return None
-    per_hap_min = np.zeros(H, np.int64)
-    for b in range(n_batches):
-        if int(counts[b, 1].sum()) > cap_total:
-            _fallback(f"batch {b}: {int(counts[b, 1].sum())} hits > "
-                      f"cap_total={cap_total}")
+        total_hits = int(counts[:, 1].sum())
+        if total_hits > CAP - cap_total:
+            _fallback(f"hit buffer overflow ({total_hits} hits > "
+                      f"{CAP - cap_total})")
             return None
-        for j, (si, start, nv, cont) in enumerate(padded[b * R:(b + 1) * R]):
-            if si >= 0:
-                per_hap_min[si] += int(counts[b, 0, j])
-    mark("loop_done")
+        over_cap = C if use_v3 else emitcap
+        if counts[:, 2].max(initial=0) > over_cap:
+            what = "rows3 block compaction" if use_v3 else "v2 emitted-lane"
+            _fallback(f"{what} overflow (max {int(counts[:, 2].max())} > "
+                      f"{'C' if use_v3 else 'emitcap'}={over_cap})")
+            return None
+        per_hap_min = np.zeros(H, np.int64)
+        for b in range(n_batches):
+            if int(counts[b, 1].sum()) > cap_total:
+                _fallback(f"batch {b}: {int(counts[b, 1].sum())} hits > "
+                          f"cap_total={cap_total}")
+                return None
+            for j, (si, start, nv, cont) in enumerate(
+                    padded[b * R:(b + 1) * R]):
+                if si >= 0:
+                    per_hap_min[si] += int(counts[b, 0, j])
 
     # walk_mat and its prefix hashes (24 B a lane): graph-static, kept on
     # the device where a re-run finds them by content; above the gate
     # only an id key would hold them, through the solve and for no later
     # run (the pipeline loads the graph anew), so they are this run's
-    if content_keyed(graph.walk_mat):
-        walk_mat, ph1, ph2 = _dev_cached(
-            graph.walk_mat, ("wm_ph",), device,
-            lambda: _walk_hashes(graph, device))
-    else:
-        walk_mat, ph1, ph2 = _walk_hashes(graph, device)
-    mark("ph_build")
-    t0 = perf_counter()
-    occ = _finalize(buf_se[:total_hits], buf_id[:total_hits],
-                    buf_hap[:total_hits], walk_mat, threshold, len(sp_hi), H,
-                    ph=(ph1, ph2))
-    if prof:
-        sys.stderr.write(f"[danchor-prof] finalize+stats="
-                         f"{perf_counter() - t0:.3f} total_hits={total_hits}"
-                         f" TOT={total_hits}\n")
+    with span("walk_hashes"):
+        if content_keyed(graph.walk_mat):
+            walk_mat, ph1, ph2 = _dev_cached(
+                graph.walk_mat, ("wm_ph",), device,
+                lambda: _walk_hashes(graph, device))
+        else:
+            walk_mat, ph1, ph2 = _walk_hashes(graph, device)
+    with span("filter"):
+        occ = _finalize(buf_se[:total_hits], buf_id[:total_hits],
+                        buf_hap[:total_hits], walk_mat, threshold,
+                        len(sp_hi), H, ph=(ph1, ph2))
     if occ is None:
         return None
     occ.n_hits = total_hits
     occ.pack_bytes = pack_bytes
-    if prof:
-        sys.stderr.write(
-            f"[danchor-prof] n_occ={occ.n_occ} max_span={occ.max_span} "
-            f"n_amb={occ.n_amb} owner_rounds={occ.owner_rounds}\n")
     return per_hap_min, occ
 
 

@@ -38,6 +38,7 @@ import torch
 
 from phi_tpu_torch import state
 from phi_tpu_torch.parallel.dist import read_shard_bounds
+from phi_tpu_torch.trace import span
 
 _INF = float("inf")
 
@@ -647,40 +648,39 @@ def solve_dp_sharded(tables, mesh: Mesh, max_sweeps: int = 256):
     search fixpoint, and the optimistic one (S := B) for the bound. The
     solution (M, ent, sv_at) is on the first shard's device, as
     decode_path takes it."""
-    from phi_tpu_torch.solve.dp import (LAST_TIMINGS, DeviceSolution, _ends,
-                                        _sync, _warn_cap, esrc_ent)
-    LAST_TIMINGS.clear()
-    t0 = time.time()
+    from phi_tpu_torch.solve.dp import (DeviceSolution, _ends, _sync,
+                                        _warn_cap, esrc_ent)
     dev0 = mesh.flat[0]
     H, P = tables.state_vertex.shape
-    eh, ep, et, sv0, wl0 = state.solver_static(tables, dev0)
-    if tables.n_layers is not None:
-        args, B = exact_solver_args(tables, mesh)
+    with span("tables"):
+        eh, ep, et, sv0, wl0 = state.solver_static(tables, dev0)
+        if tables.n_layers is not None:
+            args, B = exact_solver_args(tables, mesh)
+            _sync(dev0)
+        else:
+            (Hp, Pp), statics = _padded_statics(tables, mesh)
+            t = tables.dense()
+            S, B = state.credit_tensors(t, dev0)
+    with span("exec"):
+        if tables.n_layers is not None:
+            solver = sharded_solve_exact(mesh, R=tables.R,
+                                         n_vtx=tables.n_vtx,
+                                         n_layers=tables.n_layers,
+                                         max_sweeps=max_sweeps)
+            M, lb_term, sweeps = solver(*args)
+            del args
+        else:
+            solver = sharded_solve(mesh, R=tables.R, n_vtx=tables.n_vtx,
+                                   max_sweeps=max_sweeps)
+            Bp = _pad_planes(B, Hp, Pp)
+            M, _, sweeps = solver(_pad_planes(S, Hp, Pp), Bp, *statics)
+            # the valid lower bound: the optimistic entry charge S := B
+            _, lb_term, _ = solver(Bp, Bp, *statics)
         _sync(dev0)
-        t1 = time.time()
-        solver = sharded_solve_exact(mesh, R=tables.R, n_vtx=tables.n_vtx,
-                                     n_layers=tables.n_layers,
-                                     max_sweeps=max_sweeps)
-        M, lb_term, sweeps = solver(*args)
-        del args
-    else:
-        (Hp, Pp), statics = _padded_statics(tables, mesh)
-        t = tables.dense()
-        S, B = state.credit_tensors(t, dev0)
-        t1 = time.time()
-        solver = sharded_solve(mesh, R=tables.R, n_vtx=tables.n_vtx,
-                               max_sweeps=max_sweeps)
-        Bp = _pad_planes(B, Hp, Pp)
-        M, _, sweeps = solver(_pad_planes(S, Hp, Pp), Bp, *statics)
-        # the valid lower bound: the optimistic entry charge S := B
-        _, lb_term, _ = solver(Bp, Bp, *statics)
-    _sync(dev0)
-    t2 = time.time()
-    M = M[:H, :P].contiguous()
-    ent = esrc_ent(M, B, eh, ep, et, wl0, tables.n_vtx).cpu().numpy()
-    ends = _ends(M, B, wl0).cpu().numpy()
-    LAST_TIMINGS.update(tables=round(t1 - t0, 3), exec=round(t2 - t1, 3),
-                        fetch=round(time.time() - t2, 3))
+    with span("fetch"):
+        M = M[:H, :P].contiguous()
+        ent = esrc_ent(M, B, eh, ep, et, wl0, tables.n_vtx).cpu().numpy()
+        ends = _ends(M, B, wl0).cpu().numpy()
     _warn_cap(sweeps, max_sweeps)
     lb = float(tables.const + lb_term) if H else float(tables.const)
     return DeviceSolution(M, B, eh, ep, wl0, ent), ends, sweeps, lb

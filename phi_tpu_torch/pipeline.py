@@ -45,7 +45,7 @@ segment lines (after the solve).
 from __future__ import annotations
 
 import dataclasses
-import time
+from time import perf_counter
 
 import numpy as np
 import torch
@@ -71,8 +71,9 @@ from phi_tpu_torch.sketch.minimizer import (NO_NATIVE, host_join_many,
                                             sketch_read_concat)
 from phi_tpu_torch.solve.decode import (DecodeResult, covered_occurrences,
                                        decode_path)
-from phi_tpu_torch.solve.dp import LAST_TIMINGS, solve_dp, solve_dp_both
+from phi_tpu_torch.solve.dp import solve_dp, solve_dp_both
 from phi_tpu_torch.solve.prep import build_solver_tables, solver_layers
+from phi_tpu_torch.trace import recording, span
 
 
 @dataclasses.dataclass
@@ -127,7 +128,11 @@ def run_pipeline(gfa_path: str, reads_path: str | None, out_path: str | None,
                  opt: Options, device="cuda", mesh: Mesh | None = None
                  ) -> PipelineResult:
     """One inference. `mesh` (or opt.mesh_devices > 1, a mesh_for `device`)
-    shards the read sketch, the join and every solve over its devices."""
+    shards the read sketch, the join and every solve over its devices.
+    The result's `timings` are the run's spans (trace.py): the phases
+    load_graph, load_reads, sketch_reads, sketch_haps, anchors, solve,
+    report and emit (and -d's debug_histogram, debug_dump), their parts as
+    `<phase>_<part>`, and total."""
     device = resolve_device(device)
     if mesh is None and opt.mesh_devices and opt.mesh_devices > 1:
         mesh = mesh_for(opt.mesh_devices, device)
@@ -135,104 +140,117 @@ def run_pipeline(gfa_path: str, reads_path: str | None, out_path: str | None,
         raise RuntimeError(NO_NATIVE)
     if opt.num_threads:
         native.set_threads(opt.num_threads)
-    timings: dict[str, float] = {}
-    t0 = time.time()
+    with recording() as timings:
+        t0 = perf_counter()
+        res = _run(gfa_path, reads_path, out_path, opt, device, mesh,
+                   timings)
+        timings["total"] = perf_counter() - t0
+    return res
 
-    graph = tensorize(read_gfa(gfa_path))
-    if graph.n_vtx == 0:
-        raise ValueError(f"no segments parsed from {gfa_path} "
-                         "(is it a GFA v1.1 file?)")
-    if graph.num_walks == 0:
-        raise ValueError(f"{gfa_path} has no W-line haplotype walks; PHI "
-                         "requires walks (convert VCF input with python -m "
-                         "phi_tpu_torch.vcfio.vcf2graph -v VCF -r REF.fa)")
-    plog.log("main", f"Loaded graph from: {gfa_path}")
-    timings["load_graph"] = time.time() - t0
+
+def _run(gfa_path: str, reads_path: str | None, out_path: str | None,
+         opt: Options, device, mesh: Mesh | None, timings: dict
+         ) -> PipelineResult:
+    """run_pipeline's phases, each a span of the run's recorder."""
+    with span("load_graph"):
+        with span("parse"):
+            gfa = read_gfa(gfa_path)
+        with span("tensorize"):
+            graph = tensorize(gfa)
+        if graph.n_vtx == 0:
+            raise ValueError(f"no segments parsed from {gfa_path} "
+                             "(is it a GFA v1.1 file?)")
+        if graph.num_walks == 0:
+            raise ValueError(f"{gfa_path} has no W-line haplotype walks; "
+                             "PHI requires walks (convert VCF input with "
+                             "python -m phi_tpu_torch.vcfio.vcf2graph -v "
+                             "VCF -r REF.fa)")
+        plog.log("main", f"Loaded graph from: {gfa_path}")
 
     hits = None
     if opt.load_index:
         # the checkpoint: the spectrum and the per-hap join hits of an
         # earlier --save-index run; parameter re-solves skip sketching
-        t1 = time.time()
-        spectrum, hits, meta = load_index(opt.load_index)
-        if meta and (int(meta.get("k", opt.k)) != opt.k
-                     or int(meta.get("w", opt.w)) != opt.w):
-            raise ValueError(
-                f"index {opt.load_index} was built with k={meta.get('k')} "
-                f"w={meta.get('w')}, run requests k={opt.k} w={opt.w}")
-        if len(hits) != graph.num_walks:
-            raise ValueError(
-                f"index {opt.load_index} has {len(hits)} haplotypes, "
-                f"graph has {graph.num_walks}")
-        plog.log("ILP_function",
-                 f"Loaded index from {opt.load_index}: spectrum "
-                 f"{len(spectrum[0])}, {graph.num_walks} haplotypes")
         timings["load_reads"] = 0.0
         timings["sketch_reads"] = 0.0
-        timings["sketch_haps"] = time.time() - t1
+        with span("sketch_haps"):
+            spectrum, hits, meta = load_index(opt.load_index)
+            if meta and (int(meta.get("k", opt.k)) != opt.k
+                         or int(meta.get("w", opt.w)) != opt.w):
+                raise ValueError(
+                    f"index {opt.load_index} was built with "
+                    f"k={meta.get('k')} w={meta.get('w')}, run requests "
+                    f"k={opt.k} w={opt.w}")
+            if len(hits) != graph.num_walks:
+                raise ValueError(
+                    f"index {opt.load_index} has {len(hits)} haplotypes, "
+                    f"graph has {graph.num_walks}")
+            plog.log("ILP_function",
+                     f"Loaded index from {opt.load_index}: spectrum "
+                     f"{len(spectrum[0])}, {graph.num_walks} haplotypes")
     else:
-        t1 = time.time()
-        reads = load_read_batch(reads_path)
-        timings["load_reads"] = time.time() - t1
+        with span("load_reads"):
+            reads = load_read_batch(reads_path)
         plog.log("ILP_function",
                  f"Graph has {graph.n_vtx} vertices, {graph.num_walks} walks "
                  f"and read has {reads.n_reads} reads")
-        t1 = time.time()
-        spectrum = sketch_read_concat(
-            reads.concat, reads.off, opt.k, opt.w,
-            devices=mesh.flat if mesh else None, device=device)
-        timings["sketch_reads"] = time.time() - t1
+        with span("sketch_reads"):
+            spectrum = sketch_read_concat(
+                reads.concat, reads.off, opt.k, opt.w,
+                devices=mesh.flat if mesh else None, device=device)
 
-        t1 = time.time()
-        plog.raw("Number of Minimizers")
-        hap_codes = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
-        dres = None
-        if not opt.save_index and mesh is None and len(spectrum[0]):
-            # haplotype sketch + join + threshold filter, on the device;
-            # None where the reference leaves it for the hit path
-            dres = join_anchors_device(
-                graph, hap_codes, opt.k, opt.w, spectrum[0], spectrum[1],
-                opt.threshold, device=device)
-        if dres is None:
-            hits = _join_hits(graph, hap_codes, opt, spectrum, device,
-                              mesh.flat if mesh else None)
-            per_hap_min = [n for n, _, _ in hits]
-        else:
-            per_hap_min, dev_occ = dres
-            anchors = AnchorTables.on_device(per_hap_min, dev_occ,
-                                             len(spectrum[0]))
-        for h in range(graph.num_walks):
-            plog.raw(f"{graph.walk_names[h]} : {per_hap_min[h]}")
-        plog.log("ILP_function", "Haplotypes sketched")
-        timings["sketch_haps"] = time.time() - t1
+        with span("sketch_haps"):
+            plog.raw("Number of Minimizers")
+            with span("walk_codes"):
+                hap_codes = [graph.walk_seq_codes(h)
+                             for h in range(graph.num_walks)]
+            dres = None
+            if not opt.save_index and mesh is None and len(spectrum[0]):
+                # haplotype sketch + join + threshold filter, on the
+                # device; None where the reference leaves it for the hit
+                # path
+                dres = join_anchors_device(
+                    graph, hap_codes, opt.k, opt.w, spectrum[0],
+                    spectrum[1], opt.threshold, device=device)
+            if dres is None:
+                hits = _join_hits(graph, hap_codes, opt, spectrum, device,
+                                  mesh.flat if mesh else None)
+                per_hap_min = [n for n, _, _ in hits]
+            else:
+                per_hap_min, dev_occ = dres
+                anchors = AnchorTables.on_device(per_hap_min, dev_occ,
+                                                 len(spectrum[0]))
+            for h in range(graph.num_walks):
+                plog.raw(f"{graph.walk_names[h]} : {per_hap_min[h]}")
+            plog.log("ILP_function", "Haplotypes sketched")
         plog.log("ILP_function",
                  f"Indexed reads with spectrum size: {len(spectrum[0])}")
         if opt.save_index:
-            save_index(opt.save_index, spectrum, hits,
-                       meta={"k": opt.k, "w": opt.w})
+            with span("save_index"):
+                save_index(opt.save_index, spectrum, hits,
+                           meta={"k": opt.k, "w": opt.w})
             plog.log("ILP_function", f"Index saved to {opt.save_index}")
 
     if opt.debug:
-        t1 = time.time()
-        _debug_sharing_histogram(graph, opt, device)
-        timings["debug_histogram"] = time.time() - t1
+        with span("debug_histogram"):
+            _debug_sharing_histogram(graph, opt, device)
 
     # --- anchor tables (host, on the hit path) + the log contract ---
-    t1 = time.time()
-    if hits is not None:
-        anchors = anchor_tables_from_hits(graph, opt.k, hits,
-                                          len(spectrum[0]), opt.threshold)
-    plog.raw("Number of Anchors")
-    for h in range(graph.num_walks):
-        plog.raw(f"{graph.walk_names[h]} : {anchors.per_hap_anchors[h]}")
-    sp = max(anchors.spectrum_size, 1)
-    plog.log("ILP_function",
-             f"Filtered/Retained Minimizers: "
-             f"{anchors.filtered_kmers / sp * 100:.2f}/"
-             f"{(sp - anchors.filtered_kmers) / sp * 100:.2f}%")
-    plog.log("ILP_function",
-             f"{anchors.n_model_kmers * 100.0 / sp:.2f}% Minimizers are in ILP")
-    timings["anchors"] = time.time() - t1
+    with span("anchors"):
+        if hits is not None:
+            anchors = anchor_tables_from_hits(graph, opt.k, hits,
+                                              len(spectrum[0]), opt.threshold)
+        plog.raw("Number of Anchors")
+        for h in range(graph.num_walks):
+            plog.raw(f"{graph.walk_names[h]} : {anchors.per_hap_anchors[h]}")
+        sp = max(anchors.spectrum_size, 1)
+        plog.log("ILP_function",
+                 f"Filtered/Retained Minimizers: "
+                 f"{anchors.filtered_kmers / sp * 100:.2f}/"
+                 f"{(sp - anchors.filtered_kmers) / sp * 100:.2f}%")
+        plog.log("ILP_function",
+                 f"{anchors.n_model_kmers * 100.0 / sp:.2f}% Minimizers are "
+                 "in ILP")
 
     # --- solve ---
     mode = ("QP" if opt.is_qclp else "ILP")
@@ -244,45 +262,46 @@ def run_pipeline(gfa_path: str, reads_path: str | None, out_path: str | None,
              f"Compat: -q{opt.is_qclp} -m{opt.is_mixed} -N{opt.is_naive_exp} "
              f"select equivalent formulations (DP solves the shared optimum "
              f"directly); -c {opt.max_occ} accepted, unused")
-    t1 = time.time()
-    result = _solve_with_refinement(graph, anchors, opt, device, mesh)
-    for key, val in LAST_TIMINGS.items():
-        timings[f"solve_{key}"] = val
-    plog.log("ILP_function", "Model optimized")
-    plog.log("ILP_function",
-             f"DP sweeps: {result.n_sweeps}; lower bound: {result.dp_objective:.3f}; "
-             f"path objective: {result.true_objective:.3f}; "
-             f"gap: {max(0.0, result.true_objective - result.dp_objective):.3f}")
-    timings["solve"] = time.time() - t1
+    with span("solve"):
+        result = _solve_with_refinement(graph, anchors, opt, device, mesh)
+        plog.log("ILP_function", "Model optimized")
+        plog.log("ILP_function",
+                 f"DP sweeps: {result.n_sweeps}; lower bound: "
+                 f"{result.dp_objective:.3f}; path objective: "
+                 f"{result.true_objective:.3f}; gap: "
+                 f"{max(0.0, result.true_objective - result.dp_objective):.3f}")
 
     if opt.debug:
         # the reference's -d detail: a model dump and the chosen path
-        t1 = time.time()
-        _debug_model_dump(graph, anchors, opt)
-        for (sh, sq, sp) in result.segments:
-            plog.raw(f"[D] segment lane={graph.walk_names[sh]} "
-                     f"walk_pos=[{sq},{sp}] vertices=["
-                     f"{graph.walk_mat[sh, sq]}..{graph.walk_mat[sh, sp]}]")
-        plog.raw(f"[D] matched distinct k-mers: {result.matched_distinct} / "
-                 f"{anchors.n_model_kmers}; weighted occurrence credit: "
-                 f"{result.matched_total:.1f}")
-        timings["debug_dump"] = time.time() - t1
+        with span("debug_dump"):
+            _debug_model_dump(graph, anchors, opt)
+            for (sh, sq, sp) in result.segments:
+                plog.raw(f"[D] segment lane={graph.walk_names[sh]} "
+                         f"walk_pos=[{sq},{sp}] vertices=["
+                         f"{graph.walk_mat[sh, sq]}.."
+                         f"{graph.walk_mat[sh, sp]}]")
+            plog.raw(f"[D] matched distinct k-mers: "
+                     f"{result.matched_distinct} / {anchors.n_model_kmers}; "
+                     f"weighted occurrence credit: "
+                     f"{result.matched_total:.1f}")
 
     # --- report + emit ---
-    recomb, segs = recombination_report(graph, result.vertices, result.vertex_hap)
-    plog.raw(f"Recombination count: {recomb}")
-    plog.raw("Recombined haplotypes: " + "".join(segs))
+    with span("report"):
+        recomb, segs = recombination_report(graph, result.vertices,
+                                            result.vertex_hap)
+        plog.raw(f"Recombination count: {recomb}")
+        plog.raw("Recombined haplotypes: " + "".join(segs))
 
-    t1 = time.time()
-    seq = graph.path_seq(result.vertices)
-    if out_path is not None:
-        name = hap_name_from_paths(gfa_path,
-                                   reads_path or opt.load_index or "index")
-        write_fasta(out_path, name, seq)
-        plog.log("ILP_function",
-                 f"Haplotype of size: {len(seq)} written to: {out_path}")
-    timings["emit"] = time.time() - t1
-    timings["total"] = time.time() - t0
+    with span("emit"):
+        with span("path_seq"):
+            seq = graph.path_seq(result.vertices)
+        if out_path is not None:
+            with span("write"):
+                name = hap_name_from_paths(
+                    gfa_path, reads_path or opt.load_index or "index")
+                write_fasta(out_path, name, seq)
+            plog.log("ILP_function",
+                     f"Haplotype of size: {len(seq)} written to: {out_path}")
     return PipelineResult(
         sequence=seq, decode=result, anchors=anchors,
         recombination_count=recomb, report_segments=segs,
@@ -369,7 +388,8 @@ def _join_hits(graph, hap_codes, opt: Options, spectrum, device,
 def _hydrate_tables(tables, anchors) -> None:
     """Fill the host occurrence columns (decode's lazy straddle and S_row
     reads need them) from the device anchors."""
-    anchors.materialize_device()
+    with span("hydrate"):
+        anchors.materialize_device()
     if tables.occ_hap is None:
         tables.occ_hap = anchors.occ_hap
         tables.occ_start = anchors.occ_start
@@ -394,7 +414,8 @@ def _solve_and_decode(graph, tables, anchors, opt: Options, device,
         _hydrate_tables(tables, anchors)
         return decode_path(graph, tables, anchors, M, ends, sweeps, lb)
     _hydrate_tables(tables, anchors)
-    tables = tables.dense()
+    with span("tables"):
+        tables = tables.dense()
     (M, ends), (M_opt, ends_opt), sweeps, lb = solve_dp_both(
         tables, opt.max_sweeps, device)
     best = decode_path(graph, tables, anchors, M, ends, sweeps, lb)
@@ -427,17 +448,18 @@ def _solve_with_refinement(graph: PangenomeGraph, anchors: AnchorTables,
     exact small-case enumeration, projected subgradient ascent and
     branch-and-bound, each only while the gap stays above gap_tol."""
     from phi_tpu_torch.solve.prep import _bucket_layers
-    layers = solver_layers(graph, opt.k)
-    # shrink the W stack to the spans actually present (no compile cache to
-    # keep stable, so every route shrinks, as phi_tpu does on its CPU
-    # backend)
-    if anchors.device_occ is not None:
-        max_span = anchors.device_occ.max_span
-    else:
-        max_span = int((anchors.occ_end - anchors.occ_start).max()) \
-            if len(anchors.occ_hap) else 0
-    if max_span > 0:
-        layers = min(layers, _bucket_layers(max_span - 1))
+    with span("prep"):
+        layers = solver_layers(graph, opt.k)
+        # shrink the W stack to the spans actually present (no compile
+        # cache to keep stable, so every route shrinks, as phi_tpu does on
+        # its CPU backend)
+        if anchors.device_occ is not None:
+            max_span = anchors.device_occ.max_span
+        else:
+            max_span = int((anchors.occ_end - anchors.occ_start).max()) \
+                if len(anchors.occ_hap) else 0
+        if max_span > 0:
+            layers = min(layers, _bucket_layers(max_span - 1))
     tables = build_solver_tables(graph, anchors, opt.recombination, layers)
     best = _solve_and_decode(graph, tables, anchors, opt, device, mesh)
     best_bound = best.dp_objective

@@ -942,8 +942,8 @@ def join_many(seqs: list[np.ndarray], k: int, w: int, sp_hi, sp_lo, *,
     overflow emitcap or whose hits overflow cap_total (the reference's
     join_caps) is rerun there with the caps raised to the next power of
     two; n_min is exact either way, and since batches carry nothing the
-    rerun touches no other batch. PHI_TPU_JOIN_PROF=1 writes the
-    pack_wait / dispatch / harvest totals to stderr as a [join-prof] line.
+    rerun touches no other batch. Spans (trace.py): plan, cuckoo and join
+    (its batches' pack_wait, dispatch and harvest).
 
     With `devices` (a mesh's devices, which may repeat), the sequences are
     round-robined over them, sequence j on devices[j % len(devices)], each
@@ -965,17 +965,19 @@ def join_many(seqs: list[np.ndarray], k: int, w: int, sp_hi, sp_lo, *,
     if k + w - 2 > HALO_PAD:
         raise ValueError(f"k + w - 2 must be <= {HALO_PAD}")
     from concurrent.futures import ThreadPoolExecutor
-    from time import perf_counter
 
     from phi_tpu_torch import state
     from phi_tpu_torch.ops.search import mixed_tensors
+    from phi_tpu_torch.trace import span
     device = torch.device(device)
     super_blocks = super_blocks or SUPER_BLOCKS
     row_lanes = (super_blocks + 1) * BLK
-    results, rows = plan_join_rows(seqs, k, w, super_blocks)
+    with span("plan"):
+        results, rows = plan_join_rows(seqs, k, w, super_blocks)
     if not rows:
         return results
-    table = mixed_tensors(sp_hi, sp_lo, device)
+    with span("cuckoo"):
+        table = mixed_tensors(sp_hi, sp_lo, device)
     R = rows_per_call or ROWS
     caps = (emit_cap(w, super_blocks), hit_cap(w, super_blocks, R))
     n_batches = -(-len(rows) // R)
@@ -996,63 +998,54 @@ def join_many(seqs: list[np.ndarray], k: int, w: int, sp_hi, sp_lo, *,
     done: list = [None] * n_batches
 
     def harvest(b):
-        tens, out, cfetch = pend[b]
-        nm, nh = state.fetched(cfetch)
-        emitcap, cap_total = caps
-        while nm.max() > emitcap or nh.sum() > cap_total:
-            emitcap = _next_pow2(max(emitcap, nm.max()))
-            cap_total = _next_pow2(max(cap_total, nh.sum()))
-            out, cfetch = dispatch(tens, emitcap, cap_total)
+        with span("harvest"):
+            tens, out, cfetch = pend[b]
             nm, nh = state.fetched(cfetch)
-        tot = int(nh.sum())
-        pend[b] = None
-        done[b] = (nm, nh, state.fetch(out[2][:tot]),
-                   state.fetch(out[3][:tot]))
+            emitcap, cap_total = caps
+            while nm.max() > emitcap or nh.sum() > cap_total:
+                emitcap = _next_pow2(max(emitcap, nm.max()))
+                cap_total = _next_pow2(max(cap_total, nh.sum()))
+                out, cfetch = dispatch(tens, emitcap, cap_total)
+                nm, nh = state.fetched(cfetch)
+            tot = int(nh.sum())
+            pend[b] = None
+            done[b] = (nm, nh, state.fetch(out[2][:tot]),
+                       state.fetch(out[3][:tot]))
 
-    prof = os.environ.get("PHI_TPU_JOIN_PROF") == "1"
-    t_pack = t_disp = t_harv = 0.0
-    packer = ThreadPoolExecutor(1)
-    try:
-        fut = packer.submit(pack, 0)
-        for b in range(n_batches):
-            t0 = perf_counter()
-            host = fut.result()
-            t1 = perf_counter()
-            t_pack += t1 - t0
-            if b + 1 < n_batches:
-                fut = packer.submit(pack, b + 1)
-            tens = state.upload(host, device)
-            del host
-            pend[b] = [tens, *dispatch(tens, *caps)]
-            t2 = perf_counter()
-            t_disp += t2 - t1
-            if b >= WINDOW:
-                harvest(b - WINDOW)
-                t_harv += perf_counter() - t2
-        t0 = perf_counter()
-        for b in range(max(0, n_batches - WINDOW), n_batches):
-            harvest(b)
-        t_harv += perf_counter() - t0
-    finally:
-        packer.shutdown(wait=False, cancel_futures=True)
-        if prof:
-            import sys
-            sys.stderr.write(
-                f"[join-prof] batches={n_batches} pack_wait={t_pack:.3f} "
-                f"dispatch={t_disp:.3f} harvest={t_harv:.3f}\n")
-    acc: dict[int, tuple[int, list, list]] = {}
-    for b in range(n_batches):
-        nm, nh, pfetch, ifetch = done[b]
-        fpos, fid = state.fetched(pfetch), state.fetched(ifetch)
-        off = 0
-        for j, (si, start, _, _) in enumerate(padded[b * R:(b + 1) * R]):
-            if si < 0:
-                continue
-            n_acc, pos_parts, id_parts = acc.get(si, (0, [], []))
-            pos_parts.append(fpos[off:off + nh[j]] + start)
-            id_parts.append(fid[off:off + nh[j]])
-            acc[si] = (n_acc + int(nm[j]), pos_parts, id_parts)
-            off += nh[j]
+    with span("join"):
+        packer = ThreadPoolExecutor(1)
+        try:
+            fut = packer.submit(pack, 0)
+            for b in range(n_batches):
+                with span("pack_wait"):
+                    host = fut.result()
+                if b + 1 < n_batches:
+                    fut = packer.submit(pack, b + 1)
+                with span("dispatch"):
+                    tens = state.upload(host, device)
+                    del host
+                    pend[b] = [tens, *dispatch(tens, *caps)]
+                if b >= WINDOW:
+                    harvest(b - WINDOW)
+            for b in range(max(0, n_batches - WINDOW), n_batches):
+                harvest(b)
+        finally:
+            packer.shutdown(wait=False, cancel_futures=True)
+        acc: dict[int, tuple[int, list, list]] = {}
+        with span("harvest"):
+            for b in range(n_batches):
+                nm, nh, pfetch, ifetch = done[b]
+                fpos, fid = state.fetched(pfetch), state.fetched(ifetch)
+                off = 0
+                for j, (si, start, _, _) in enumerate(
+                        padded[b * R:(b + 1) * R]):
+                    if si < 0:
+                        continue
+                    n_acc, pos_parts, id_parts = acc.get(si, (0, [], []))
+                    pos_parts.append(fpos[off:off + nh[j]] + start)
+                    id_parts.append(fid[off:off + nh[j]])
+                    acc[si] = (n_acc + int(nm[j]), pos_parts, id_parts)
+                    off += nh[j]
     for si, (n_min, pos_parts, id_parts) in acc.items():
         results[si] = (n_min, np.concatenate(pos_parts).astype(np.int32),
                        np.concatenate(id_parts).astype(np.int32))

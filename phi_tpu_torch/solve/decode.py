@@ -11,13 +11,13 @@ solution is read through `sv_at` and `ent` (solve.dp.DeviceSolution): the
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 
 from phi_tpu_torch.graph.pangenome import PangenomeGraph
 from phi_tpu_torch.anchors.join import AnchorTables
 from phi_tpu_torch.solve.prep import SolverTables
+from phi_tpu_torch.trace import spanned
 
 _EPS = 1e-3
 
@@ -37,12 +37,12 @@ class DecodeResult:
     solver_device: str = ""               # device of the DP solution decoded
 
 
+@spanned("decode")
 def decode_path(graph: PangenomeGraph, t: SolverTables, anchors: AnchorTables,
                 M, ends: np.ndarray, n_sweeps: int,
                 dp_objective: float) -> DecodeResult:
     """M: a solution with `ent` (per-vertex entry minima) and `sv_at`
     (switch-source exit values by esrc row)."""
-    t0 = time.time()
     H, P = t.state_vertex.shape
     walk_len = t.walk_len
     INF = np.float32(np.inf)
@@ -167,9 +167,6 @@ def decode_path(graph: PangenomeGraph, t: SolverTables, anchors: AnchorTables,
     res = result_from_segments(graph, t, anchors, segments, dp_objective)
     res.n_sweeps = n_sweeps
     res.solver_device = str(M.device)
-    from phi_tpu_torch.solve.dp import LAST_TIMINGS
-    LAST_TIMINGS["decode"] = round(
-        LAST_TIMINGS.get("decode", 0.0) + (time.time() - t0), 3)
     return res
 
 

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 import zlib
 
 import numpy as np
@@ -33,12 +32,9 @@ import torch
 
 from phi_tpu_torch import state
 from phi_tpu_torch.solve.prep import SolverTables
+from phi_tpu_torch.trace import span
 
 _INF = float("inf")
-
-# seconds of the most recent solve (tables, exec, fetch) and the decode
-# total; run_pipeline copies them into its timings as solve_*
-LAST_TIMINGS: dict[str, float] = {}
 
 # Device copies of graph-static uploads: the solver's switch sources and
 # lane tables, the host route's occurrence index columns, the anchors'
@@ -335,21 +331,23 @@ def solve_dp_both(t: SolverTables, max_sweeps: int, device):
     and the optimistic fixpoint (B, B), whose charge B[q] over-counts it,
     so its minimum is a valid lower bound. Both are decodable paths.
     Returns ((DeviceSolution, ends), (DeviceSolution, ends) of the
-    optimistic one, the larger sweep count, the bound); LAST_TIMINGS is
-    cleared, since bracket mode has no per-phase split."""
+    optimistic one, the larger sweep count, the bound). Spans: tables,
+    and exec and fetch of both fixpoints."""
     device = torch.device(device)
-    LAST_TIMINGS.clear()
-    t = t.dense()
-    eh, ep, et, sv, wl = solver_static(t, device)
-    S, B = state.credit_tensors(t, device)
+    with span("tables"):
+        t = t.dense()
+        eh, ep, et, sv, wl = solver_static(t, device)
+        S, B = state.credit_tensors(t, device)
     R = float(np.float32(t.R))
     out, sweeps = [], 0
     for charge in (S, B):
-        M, ends, n = solve_plain(charge, B, eh, ep, et, sv, wl, R, t.n_vtx,
-                                 max_sweeps)
-        ent = esrc_ent(M, B, eh, ep, et, wl, t.n_vtx).cpu().numpy()
-        out.append((DeviceSolution(M, B, eh, ep, wl, ent),
-                    ends.cpu().numpy()))
+        with span("exec"):
+            M, ends, n = solve_plain(charge, B, eh, ep, et, sv, wl, R,
+                                     t.n_vtx, max_sweeps)
+        with span("fetch"):
+            ent = esrc_ent(M, B, eh, ep, et, wl, t.n_vtx).cpu().numpy()
+            out.append((DeviceSolution(M, B, eh, ep, wl, ent),
+                        ends.cpu().numpy()))
         sweeps = max(sweeps, n)
     _warn_cap(sweeps, max_sweeps)
     ends_opt = out[1][1]
@@ -362,43 +360,41 @@ def solve_dp(t: SolverTables, max_sweeps: int, device):
     objective is both a lower bound on the distinct-k-mer optimum and the
     value of the decodable relaxed path. W is materialized, or streamed
     where stream_w says so; a solve that runs out of memory is not
-    retried streamed."""
+    retried streamed. Spans: tables, exec and fetch."""
     device = torch.device(device)
-    LAST_TIMINGS.clear()
-    t0 = time.time()
-    H, P = t.state_vertex.shape
-    eh, ep, et, sv, wl = solver_static(t, device)
-    d = t.occ_dev
-    if d is not None:
-        oh, os_, osp, ow = d.dev_hap, d.dev_s, d.dev_span, d.dev_w
-        if t.occ_weight is not None:
+    with span("tables"):
+        H, P = t.state_vertex.shape
+        eh, ep, et, sv, wl = solver_static(t, device)
+        d = t.occ_dev
+        if d is not None:
+            oh, os_, osp, ow = d.dev_hap, d.dev_s, d.dev_span, d.dev_w
+            if t.occ_weight is not None:
+                ow = state.occ_weights(t.occ_weight, device)
+        else:
+            # the index columns once per ladder, each round's weights fresh
+            oh, os_, osp = _dev_cached(
+                t.occ_hap, ("occ",), device,
+                lambda: state.occ_index_tensors(
+                    t.occ_hap, t.occ_start, t.occ_end - t.occ_start,
+                    device),
+                content_arrs=(t.occ_hap, t.occ_start, t.occ_end))
             ow = state.occ_weights(t.occ_weight, device)
-    else:
-        # the index columns once per ladder, each round's weights fresh
-        oh, os_, osp = _dev_cached(
-            t.occ_hap, ("occ",), device,
-            lambda: state.occ_index_tensors(
-                t.occ_hap, t.occ_start, t.occ_end - t.occ_start, device),
-            content_arrs=(t.occ_hap, t.occ_start, t.occ_end))
-        ow = state.occ_weights(t.occ_weight, device)
-    L = t.n_layers
-    streamed = stream_w(H, P, L, int(ow.shape[0]), device)
-    S, B, W = build_sbw(oh, os_, osp, ow, H, P, 0 if streamed else L)
-    if streamed:
-        W = StreamedW(oh, os_, osp, ow, H, P, L)
-    _sync(device)
-    t1 = time.time()
-    M, ends_d, n_sweeps = solve_exact(S, B, W, eh, ep, et, sv, wl,
-                                      float(np.float32(t.R)), t.n_vtx,
-                                      max_sweeps)
-    del W, S
-    _sync(device)
-    t2 = time.time()
-    ent = esrc_ent(M, B, eh, ep, et, wl, t.n_vtx).cpu().numpy()
-    ends = ends_d.cpu().numpy()
+        L = t.n_layers
+        streamed = stream_w(H, P, L, int(ow.shape[0]), device)
+        S, B, W = build_sbw(oh, os_, osp, ow, H, P, 0 if streamed else L)
+        if streamed:
+            W = StreamedW(oh, os_, osp, ow, H, P, L)
+        _sync(device)
+    with span("exec"):
+        M, ends_d, n_sweeps = solve_exact(S, B, W, eh, ep, et, sv, wl,
+                                          float(np.float32(t.R)), t.n_vtx,
+                                          max_sweeps)
+        del W, S
+        _sync(device)
+    with span("fetch"):
+        ent = esrc_ent(M, B, eh, ep, et, wl, t.n_vtx).cpu().numpy()
+        ends = ends_d.cpu().numpy()
     sol = DeviceSolution(M, B, eh, ep, wl, ent)
-    LAST_TIMINGS.update(tables=round(t1 - t0, 3), exec=round(t2 - t1, 3),
-                        fetch=round(time.time() - t2, 3))
     _warn_cap(n_sweeps, max_sweeps)
     lb = float(t.const + ends.min()) if len(ends) else float(t.const)
     return sol, ends, n_sweeps, lb

@@ -23,6 +23,7 @@ import numpy as np
 from phi_tpu_torch.graph.pangenome import PangenomeGraph, ragged_arange
 from phi_tpu_torch.anchors.join import (AnchorTables, credit_arrays,
                                         credit_arrays_from_occ)
+from phi_tpu_torch.trace import spanned
 
 
 @dataclasses.dataclass
@@ -215,6 +216,7 @@ def solver_layers(graph: PangenomeGraph, k: int) -> int:
     return _bucket_layers(max_kmer_span(graph, k) - 1)
 
 
+@spanned("prep")
 def build_solver_tables(graph: PangenomeGraph, anchors: AnchorTables,
                         R: float, n_layers: int | None = None,
                         const_override: float | None = None) -> SolverTables:

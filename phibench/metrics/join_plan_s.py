@@ -1,0 +1,8 @@
+"""The mean of the pipeline's timings["sketch_haps_plan"] over the window's items
+(host clock). None where the program records no such span."""
+
+from phibench.readers import mean_timing
+
+
+def read(run):
+    return mean_timing(run, "sketch_haps_plan")

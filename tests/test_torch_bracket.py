@@ -187,17 +187,24 @@ def test_solve_plain_matches_solve_jit(chain, charge):
 @pytest.mark.parametrize("chain", [70, 120])
 def test_solve_dp_both_matches_jax(chain):
     from phi_tpu.solve import dp as jdp
-    from phi_tpu_torch.solve.dp import LAST_TIMINGS, solve_dp_both
+    from phi_tpu_torch.solve.dp import solve_dp_both
+    from phi_tpu_torch.trace import recording, span
     t, jt = _zerolen_tables(4002, chain)
-    LAST_TIMINGS["exec"] = 1.0
-    (sol, ends), (sol_o, ends_o), sweeps, lb = solve_dp_both(t, 256, "cpu")
+    with recording() as timings:
+        with span("solve"):
+            (sol, ends), (sol_o, ends_o), sweeps, lb = solve_dp_both(
+                t, 256, "cpu")
     (jM, jends), (jM_o, jends_o), jsweeps, jlb = jdp.solve_dp_both(jt, 256)
     np.testing.assert_array_equal(sol.M.numpy(), jM)
     np.testing.assert_array_equal(sol_o.M.numpy(), jM_o)
     np.testing.assert_array_equal(ends, jends)
     np.testing.assert_array_equal(ends_o, jends_o)
     assert (sweeps, lb) == (jsweeps, jlb)
-    assert not LAST_TIMINGS
+    # the bracket path has the exact path's solve_* keys
+    assert set(timings) == {"solve", "solve_tables", "solve_exec",
+                            "solve_fetch"}
+    assert sum(timings[f"solve_{k}"] for k in ("tables", "exec", "fetch")) \
+        <= timings["solve"]
     assert sol.device.type == "cpu"
 
 

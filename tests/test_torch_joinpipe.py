@@ -15,7 +15,8 @@ the plain twins:
 - _dev_cached keeps at most 12 keys and no content key above its gate,
   and walk_mat's hashes stay cached only below it;
 - a raising pack worker's exception reaches the caller;
-- PHI_TPU_JOIN_PROF writes the JAX package's labels."""
+- the joins' spans hold the stages the JAX package's profiler lines
+  time."""
 
 import re
 
@@ -358,28 +359,57 @@ def _labels(err: str, prefix: str) -> set:
     return out
 
 
-@pytest.mark.parametrize("level", ["1", "2"])
-def test_join_prof_lines_carry_the_jax_labels(anchors_case, many_case,
-                                              monkeypatch, capsys, level):
-    jgraph, graph, seqs, sp, _ = anchors_case
-    monkeypatch.setenv("PHI_TPU_JOIN_PROF", level)
+# the stage labels of the JAX package's [danchor-prof] / [join-prof]
+# lines, each with the port's span of that stage (under the caller's span);
+# the lines' other labels are counts, which no span holds
+JAX_STAGES = {"rows+seqscan": "plan", "make_cuckoo": "cuckoo",
+              "fingerprint": "fingerprint", "loop_done": "join",
+              "pack_wait": "join_pack_wait", "dispatch": "join_dispatch",
+              "harvest": "join_harvest", "batch harvest": "join_harvest",
+              "ph_build": "walk_hashes", "finalize+stats": "filter"}
+JAX_COUNTS = {"batches", "total_hits", "TOT", "n_occ", "max_span", "n_amb",
+              "owner_rounds"}
+
+
+@pytest.mark.parametrize("join", ["join_anchors_device", "join_many"])
+def test_join_spans_carry_the_jax_labels(anchors_case, many_case,
+                                         monkeypatch, capsys, join):
+    """The port's join spans hold every stage the JAX package's profiler
+    lines time (at the level that writes all of them), and the port writes
+    no such line; join_many adds plan, cuckoo and its batches' parent,
+    join."""
+    from phi_tpu_torch.trace import recording, span
     capsys.readouterr()
-    jdev.join_anchors_device(jgraph, seqs, K, W, sp[0], sp[1], 1.0,
-                             interpret=True, **GEOM)
-    want = _labels(capsys.readouterr().err, "[danchor-prof]")
-    _port_join(anchors_case)
-    got = _labels(capsys.readouterr().err, "[danchor-prof]")
-    assert got == want
-    assert {"rows+seqscan", "make_cuckoo", "fingerprint", "loop_done",
-            "ph_build", "pack_wait", "dispatch", "harvest",
-            "finalize+stats"} <= got
-    assert ("batch harvest" in got) == (level == "2")
-    k, w, mseqs, sp_hi, sp_lo, _ = many_case
-    jk.pallas_join_many(mseqs, k, w, jnp.asarray(sp_hi), jnp.asarray(sp_lo),
-                        rows_per_call=5, super_blocks=2, interpret=True)
-    want = _labels(capsys.readouterr().err, "[join-prof]")
-    tk.join_many(mseqs, k, w, sp_hi, sp_lo, device="cpu", rows_per_call=5,
-                 super_blocks=2)
-    got = _labels(capsys.readouterr().err, "[join-prof]")
-    assert got == want == ({"batches", "pack_wait", "dispatch", "harvest"}
-                           if level == "1" else set())
+    if join == "join_anchors_device":
+        jgraph, graph, seqs, sp, _ = anchors_case
+        monkeypatch.setenv("PHI_TPU_JOIN_PROF", "2")
+        jdev.join_anchors_device(jgraph, seqs, K, W, sp[0], sp[1], 1.0,
+                                 interpret=True, **GEOM)
+        labels = _labels(capsys.readouterr().err, "[danchor-prof]")
+
+        def port():
+            return _port_join(anchors_case)
+    else:
+        k, w, mseqs, sp_hi, sp_lo, _ = many_case
+        monkeypatch.setenv("PHI_TPU_JOIN_PROF", "1")
+        jk.pallas_join_many(mseqs, k, w, jnp.asarray(sp_hi),
+                            jnp.asarray(sp_lo), rows_per_call=5,
+                            super_blocks=2, interpret=True)
+        labels = _labels(capsys.readouterr().err, "[join-prof]")
+
+        def port():
+            return tk.join_many(mseqs, k, w, sp_hi, sp_lo, device="cpu",
+                                rows_per_call=5, super_blocks=2)
+    assert labels and labels <= set(JAX_STAGES) | JAX_COUNTS
+    want = {JAX_STAGES[label] for label in labels if label in JAX_STAGES}
+    with recording() as t:
+        with span("sketch_haps"):
+            port()
+    got = {key[len("sketch_haps_"):] for key in t if key != "sketch_haps"}
+    extra = set() if join == "join_anchors_device" else \
+        {"plan", "cuckoo", "join"}
+    assert got == want | extra
+    assert sum(t[f"sketch_haps_join_{s}"] for s in
+               ("pack_wait", "dispatch", "harvest")) \
+        <= t["sketch_haps_join"] <= t["sketch_haps"]
+    assert "-prof]" not in capsys.readouterr().err
