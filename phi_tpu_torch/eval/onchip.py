@@ -14,11 +14,12 @@ x 100 Mbp, 2x reads:
 `hbm_peak_gb` is torch.cuda.max_memory_allocated() over the runs (source
 "measured") on the card; on the CPU, which has no device memory to
 measure, it is the memory model's total (eval.hbm_budget, source
-"analytic"). Before each warm run the cross-run device caches (the
-solver's and anchors' device copies, the packed-batch slot) are dropped,
-as the JAX runner drops its own, so the warm runs upload what the cold
-one did and stay inside the card at chromosome scale; `caches` records
-each run's cache hits and uploads and the bytes the caches hold after it.
+"analytic"). Before each warm run the cross-run caches (the held panel,
+the solver's and anchors' device copies, the packed-batch slot) are
+dropped, as the JAX runner drops its own, so the warm runs load and upload
+what the cold one did and stay inside the card at chromosome scale;
+`caches` records each run's cache hits and uploads and the bytes the
+caches hold after it.
 """
 
 from __future__ import annotations
@@ -53,8 +54,10 @@ def cache_counts() -> dict:
     """The cross-run caches' counters since the process started, and the
     device bytes they hold now."""
     from phi_tpu_torch.anchors import device as danchors
+    from phi_tpu_torch.graph import pangenome
     from phi_tpu_torch.solve import dp, prep
-    return {"pack_slot": dict(danchors.PACK_CACHE_STATS),
+    return {"panel": dict(pangenome.PANEL_CACHE_STATS),
+            "pack_slot": dict(danchors.PACK_CACHE_STATS),
             "pack_slot_bytes": danchors.pack_cache_bytes(),
             "dev_cache": dict(dp.DEV_CACHE_STATS),
             "dev_cache_keys": len(dp._DEV_CACHE),
@@ -70,10 +73,12 @@ def cache_delta(before: dict, after: dict) -> dict:
 
 
 def clear_caches() -> None:
-    """Drop the cross-run device caches: the solver's and anchors' device
-    copies and the packed-batch slot."""
+    """Drop the cross-run caches: the held panel (the host graph), the
+    solver's and anchors' device copies and the packed-batch slot."""
     from phi_tpu_torch.anchors import device as danchors
+    from phi_tpu_torch.graph import pangenome
     from phi_tpu_torch.solve import dp
+    pangenome.clear_panel()
     dp.clear_dev_cache()
     danchors.clear_pack_cache()
 

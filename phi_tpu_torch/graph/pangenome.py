@@ -4,11 +4,19 @@ Dense per-vertex arrays, CSR adjacency, a topological order and padded walk
 (lane) tables for the solver. The toposort, the walk-code concatenation and
 the vertex -> lane CSR run in the native host library; the port keeps no
 pure-Python fallback for them (the pipeline needs the library anyway).
+
+The held panel: one slot keeps the graph that the latest `run_pipeline`
+loaded, keyed by its file's identity, so that later inferences against the
+unchanged file take that very graph, with the memos that hang off it, and
+neither parse nor tensorize it again.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import stat
+import threading
 
 import numpy as np
 
@@ -116,3 +124,59 @@ def tensorize(gfa: GfaData) -> PangenomeGraph:
         walk_mat=walk_mat, walk_len=walk_len, walk_node_cumlen=cumlens,
         lanes_of_vertex=lanes_of_vertex, lin_ref=(len(edge_u) == 0),
     )
+
+
+_panel_lock = threading.Lock()
+# one slot (file key, PangenomeGraph): the latest panel a run loaded
+_PANEL: dict = {}
+# slot hits, graphs loaded into it and graphs dropped from it since the
+# process started
+PANEL_CACHE_STATS = {"hits": 0, "loads": 0, "drops": 0}
+
+
+def panel_key(path: str) -> tuple | None:
+    """The identity of the file at `path`: its real path, device, inode,
+    size and modification time in ns, from one stat. None where it is no
+    regular file that can be stat'ed (a pipe; a missing file, which the
+    parser then reports), so that nothing is held for it."""
+    try:
+        st = os.stat(path)
+    except OSError:
+        return None
+    if not stat.S_ISREG(st.st_mode):
+        return None
+    return (os.path.realpath(path), st.st_dev, st.st_ino, st.st_size,
+            st.st_mtime_ns)
+
+
+def held_panel(key: tuple | None) -> PangenomeGraph | None:
+    """The held graph where `key` is its file's; otherwise None, and the
+    slot drops the graph it held, before the caller loads the new one."""
+    with _panel_lock:
+        slot = _PANEL.get("slot")
+        if slot is not None and key is not None and slot[0] == key:
+            PANEL_CACHE_STATS["hits"] += 1
+            return slot[1]
+        _drop_panel()
+    return None
+
+
+def hold_panel(key: tuple | None, graph: PangenomeGraph) -> None:
+    """Hold a newly loaded graph under its file's key (nothing for None)."""
+    if key is None:
+        return
+    with _panel_lock:
+        _drop_panel()
+        _PANEL["slot"] = (key, graph)
+        PANEL_CACHE_STATS["loads"] += 1
+
+
+def clear_panel() -> None:
+    """Drop the held graph."""
+    with _panel_lock:
+        _drop_panel()
+
+
+def _drop_panel() -> None:
+    if _PANEL.pop("slot", None) is not None:
+        PANEL_CACHE_STATS["drops"] += 1

@@ -2,9 +2,11 @@
 reads -> inferred haplotype FASTA. The counterpart of `phi_tpu/pipeline.py`,
 with the same [M::] phase-log lines and the same `timings` keys.
 
-Stages: graph ingest and the read spectrum on the host (native C++; with
-PHI_TPU_DEVICE_READ_SKETCH=1 the seq kernel on the device,
-`sketch.minimizer.sketch_read_concat`); then one of two anchor routes:
+Stages: graph ingest (held between runs on the unchanged file:
+graph/pangenome.py's held panel) and the read spectrum on the host
+(native C++; with PHI_TPU_DEVICE_READ_SKETCH=1 the seq kernel on the
+device, `sketch.minimizer.sketch_read_concat`); then one of two anchor
+routes:
   * the device anchors (the default): the haplotype sketch, join and
     threshold filter on the device (anchors/device.py, through the rows3,
     rows3w or rows2 kernel);
@@ -58,7 +60,8 @@ from phi_tpu_torch.anchors.join import (AnchorTables, anchor_tables_from_hits,
 from phi_tpu_torch.checkpoint import load_index, save_index
 from phi_tpu_torch.config import Options
 from phi_tpu_torch.emit import recombination_report
-from phi_tpu_torch.graph.pangenome import PangenomeGraph, tensorize
+from phi_tpu_torch.graph.pangenome import (PangenomeGraph, held_panel,
+                                          hold_panel, panel_key, tensorize)
 from phi_tpu_torch.io.fasta import hap_name_from_paths, write_fasta
 from phi_tpu_torch.io.gfa import read_gfa
 from phi_tpu_torch.io.reads import load_read_batch
@@ -153,10 +156,17 @@ def _run(gfa_path: str, reads_path: str | None, out_path: str | None,
          ) -> PipelineResult:
     """run_pipeline's phases, each a span of the run's recorder."""
     with span("load_graph"):
+        # the held panel: the graph an earlier run loaded from this
+        # unchanged file, else a new parse and tensorize
         with span("parse"):
-            gfa = read_gfa(gfa_path)
+            key = panel_key(gfa_path)
+            graph = held_panel(key)
+            if graph is None:
+                gfa = read_gfa(gfa_path)
+        held = graph is not None
         with span("tensorize"):
-            graph = tensorize(gfa)
+            if not held:
+                graph = tensorize(gfa)
         if graph.n_vtx == 0:
             raise ValueError(f"no segments parsed from {gfa_path} "
                              "(is it a GFA v1.1 file?)")
@@ -165,6 +175,8 @@ def _run(gfa_path: str, reads_path: str | None, out_path: str | None,
                              "PHI requires walks (convert VCF input with "
                              "python -m phi_tpu_torch.vcfio.vcf2graph -v "
                              "VCF -r REF.fa)")
+        if not held:
+            hold_panel(key, graph)
         plog.log("main", f"Loaded graph from: {gfa_path}")
 
     hits = None

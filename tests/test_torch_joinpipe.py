@@ -7,9 +7,10 @@ the plain twins:
   multiple of the window);
 - join_many at several batch counts around the window and with a forced
   overflow retry, against pallas_join_many: equal (n_min, positions, ids);
-- a second run on a re-loaded graph hits the packed-batch slot, the device
-  cache and the switch-source slot, with equal arrays and the same FASTA
-  bytes; the solver statics are uploaded once per ladder;
+- a second run on a re-loaded graph (the held panel dropped) hits the
+  packed-batch slot, the device cache and the switch-source slot, with
+  equal arrays and the same FASTA bytes; the solver statics are uploaded
+  once per ladder;
 - the slot's key holds the node segmentation (the JAX fingerprint does
   not), and a run that does not cache empties the slot;
 - _dev_cached keeps at most 12 keys and no content key above its gate,
@@ -33,6 +34,8 @@ from phi_tpu_torch import pipeline, state  # noqa: E402
 from phi_tpu_torch.anchors import device as dv  # noqa: E402
 from phi_tpu_torch.config import Options  # noqa: E402
 from phi_tpu_torch.eval.hbm_budget import budget_of_run  # noqa: E402
+from phi_tpu_torch.eval.onchip import clear_caches  # noqa: E402
+from phi_tpu_torch.graph.pangenome import clear_panel  # noqa: E402
 from phi_tpu_torch.sketch import kernels as tk  # noqa: E402
 from phi_tpu_torch.solve import dp, prep  # noqa: E402
 from tests.test_torch_anchors import _instance, _spectrum  # noqa: E402
@@ -47,11 +50,9 @@ GEOM = dict(rows_per_call=2, super_blocks=1)
 
 @pytest.fixture(autouse=True)
 def cold_caches():
-    dp.clear_dev_cache()
-    dv.clear_pack_cache()
+    clear_caches()
     yield
-    dp.clear_dev_cache()
-    dv.clear_pack_cache()
+    clear_caches()
 
 
 @pytest.fixture(scope="module")
@@ -142,8 +143,9 @@ def _run(gfa, reads, out, **kw):
 
 
 def test_rerun_hits_every_cache(tmp_path):
-    """Run 2 re-loads the graph: the slot, the device cache (by content)
-    and the switch-source slot hit; its arrays and FASTA equal run 1's."""
+    """Run 2 re-loads the graph (the held panel dropped): the slot, the
+    device cache (by content) and the switch-source slot hit; its arrays
+    and FASTA equal run 1's."""
     gfa, reads = _mosaic(tmp_path)
     kw = dict(recombination=5.0)
     before = (dict(dv.PACK_CACHE_STATS), dict(dp.DEV_CACHE_STATS),
@@ -151,6 +153,7 @@ def test_rerun_hits_every_cache(tmp_path):
     r1 = _run(gfa, reads, str(tmp_path / "a.fa"), **kw)
     mid = (dict(dv.PACK_CACHE_STATS), dict(dp.DEV_CACHE_STATS),
            dict(prep.ESRC_CACHE_STATS))
+    clear_panel()
     r2 = _run(gfa, reads, str(tmp_path / "b.fa"), **kw)
     pack, devc, esrc = (dict(dv.PACK_CACHE_STATS), dict(dp.DEV_CACHE_STATS),
                         dict(prep.ESRC_CACHE_STATS))
@@ -201,6 +204,7 @@ def test_solver_statics_upload_once_per_ladder(tmp_path, monkeypatch):
     assert r1.anchors.device_occ is not None
     assert seen["solves"] >= 2
     assert (seen["esrc"], seen["lanes"]) == (1, 1)
+    clear_panel()
     _run(gfa, reads, str(tmp_path / "b.fa"), **kw)
     assert seen["solves"] >= 4
     assert (seen["esrc"], seen["lanes"]) == (1, 1)
