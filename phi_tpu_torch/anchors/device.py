@@ -65,6 +65,7 @@ _M32 = 0xFFFFFFFF
 _POLY1 = 0x9E3779B1
 _POLY2 = 0x85EBCA77
 _MAX_SPAN = 64            # pw table size; packed spans are <= 63
+MAX_HAPS = 255            # the reference's u8 hap column; more take the hit path
 _OWNER_ROUNDS = 16        # ownership-loop cap (expected ~3-4 rounds)
 # hits per pass of the threshold filter: each pass holds a handful of
 # chunk-length int64 columns (eval.hbm_budget), ~4 GB at 2^26
@@ -83,6 +84,9 @@ WINDOW = 3
 _PACK_CACHE: dict = {}
 # slot hits, stores and drops since the process started
 PACK_CACHE_STATS = {"hits": 0, "stores": 0, "drops": 0}
+# inferences by anchors route since the process started: a device route
+# (DeviceOcc.route) or "hits", the host hit path (pipeline.py counts them)
+ANCHOR_ROUTE_STATS = {"v3": 0, "v3w": 0, "v2ck": 0, "v2mixed": 0, "hits": 0}
 _FINGERPRINT_MAX_BYTES = 256 << 20
 
 
@@ -169,6 +173,7 @@ class DeviceOcc:
     n_amb: int = 0           # occurrences of ambiguous k-mers
     owner_rounds: int = 0    # rounds of the ownership loop
     pack_bytes: int = 0      # device bytes of this run's batches in the slot
+    route: str = ""          # the kernel route: v3, v3w, v2ck or v2mixed
 
     def materialize(self):
         """(occ_hap, occ_start, occ_end, occ_kmer) int32 host arrays."""
@@ -319,8 +324,8 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
     R = rows_per_call or ROWS
     SB = super_blocks or SUPER_BLOCKS
     H = graph.num_walks
-    if H > 255:
-        _fallback(f"{H} haplotypes > 255 (u8 hap column)")
+    if H > MAX_HAPS:
+        _fallback(f"{H} haplotypes > {MAX_HAPS} (u8 hap column)")
         return None
     if k + w - 2 > HALO_PAD:
         _fallback(f"k + w - 2 = {k + w - 2} > {HALO_PAD} (the kernels' "
@@ -515,6 +520,7 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
         return None
     occ.n_hits = total_hits
     occ.pack_bytes = pack_bytes
+    occ.route = route
     return per_hap_min, occ
 
 

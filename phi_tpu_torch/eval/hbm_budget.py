@@ -9,6 +9,12 @@ Two stages hold the device's memory, one after the other:
            and the two prefix-hash tables (int64), the per-k-mer
            accumulators of the threshold filter (5x int64 [spectrum]), one
            filter chunk's temporaries and the retained occurrence columns;
+           with more than anchors.device.MAX_HAPS walks the pipeline takes
+           the hit path instead (sketch.kernels.join_many), whose hits go
+           back to the host batch by batch, so the stage holds only the
+           mixed-bucket probe table, the join's batches in flight (each
+           one's packed codes and hit columns) and one batch's join
+           temporaries: no hit buffers, walk hashes or filter;
   solve    S, B, M (f32 [H, P]), the sweep's working set, W (f32 [L, H, P])
            or the streamed scratch, the switch sources and the state
            tables (int64), and the occurrence columns.
@@ -55,6 +61,13 @@ STREAM_OCC_BYTES = 20
 # int64 [chunk] columns alive at the peak of a filter chunk's first pass
 # (anchors.device._group_hashes and _kmer_stats)
 FIN_COLUMNS = 12
+# Bytes per window lane alive at the peak of one hit-path batch
+# (sketch.kernels.join_rows), in compact_emitted's second gather: the rows
+# kernel's key, pos and emit planes (int64, int32, bool: 13 B), and
+# compact_emitted's order, dst and the position column widened to int64
+# (24 B); beside them the unpacked codes (uint8, 1 B a row lane) and the
+# two gathered [R, emitcap + 1] int64 columns.
+JOIN_LANE_BYTES = 37
 
 
 def spectrum_table_bytes(spectrum: int) -> int:
@@ -62,10 +75,40 @@ def spectrum_table_bytes(spectrum: int) -> int:
     (int64 key and id per slot, a power of two >= 2 keys per slot) up to
     CUCKOO_MAX_KEYS keys, else the mixed-key table (int64 m, lo, perm per
     key and its bucket offsets)."""
-    from phi_tpu_torch.ops.search import CUCKOO_MAX_KEYS, mixed_bits_for
+    from phi_tpu_torch.ops.search import CUCKOO_MAX_KEYS
     if spectrum <= CUCKOO_MAX_KEYS:
         return 2 * 8 * (1 << max(10, (2 * spectrum - 1).bit_length()))
+    return mixed_table_bytes(spectrum)
+
+
+def mixed_table_bytes(spectrum: int) -> int:
+    """The mixed-key table (ops.search.mixed_tensors): int64 m, lo and
+    perm per key, and the 2^bits + 1 bucket offsets."""
+    from phi_tpu_torch.ops.search import mixed_bits_for
     return 3 * 8 * spectrum + 8 * ((1 << mixed_bits_for(spectrum)) + 1)
+
+
+def hit_path_rows(spectrum: int, w: int) -> dict:
+    """The anchors stage of the hit path (join_many's batches of ROWS rows
+    of SUPER_BLOCKS blocks, read when called): the probe table, the WINDOW + 1 batches a join holds (the one being
+    launched and those not yet harvested: int32 packed codes, nvalid and
+    left; int64 n_min and n_hit, and the [cap_total + 1] position and id
+    columns), and one batch's join temporaries at their peak. The two
+    batch rows count the launched batch's hit columns twice, so they
+    bound the join's peak from above by those."""
+    from phi_tpu_torch.sketch import kernels as tk
+    R, SB = tk.ROWS, tk.SUPER_BLOCKS
+    row_lanes = (SB + 1) * tk.BLK
+    held = row_lanes // 4 * R + 4 * 2 * R + 8 * 2 * R \
+        + 2 * 8 * (tk.hit_cap(w, SB, R) + 1)
+    return {
+        "spectrum probe table (int64)": mixed_table_bytes(spectrum),
+        "join batches in flight (WINDOW + 1: packed codes, hit columns)":
+            (tk.WINDOW + 1) * held,
+        "one batch's join temporaries (kernel planes, compaction)":
+            row_lanes * R + JOIN_LANE_BYTES * SB * tk.BLK * R
+            + 2 * 8 * R * (tk.emit_cap(w, SB) + 1),
+    }
 
 
 def walk_windows(walk_bases, k: int, w: int) -> int:
@@ -115,7 +158,10 @@ def budget(H: int, P: int, L: int, spectrum: int, n_occ: int, n_hits: int,
     """Per-device bytes of one (sp_shards x hap_shards) mesh tile, by row
     and stage. windows: the walks' windows (walk_windows); n_esrc: switch
     sources (default one per 16 lanes, the JAX model's); chunk: the
-    filter's chunk (default anchors.device.fin_chunk()); stream_w: the
+    filter's chunk (default anchors.device.fin_chunk()); with H above
+    anchors.device.MAX_HAPS the anchors stage is the hit path's
+    (hit_path_rows), whose occurrence columns reach the device only in
+    the solve; stream_w: the
     streamed solve, or None for the solver's rule against `capacity` less
     what the solve finds allocated; capacity: the device's bytes (default
     the first card's total memory; None on a machine without one);
@@ -123,7 +169,8 @@ def budget(H: int, P: int, L: int, spectrum: int, n_occ: int, n_hits: int,
     when they pass its gate)."""
     import os
 
-    from phi_tpu_torch.anchors.device import fin_chunk, hit_buffer_len
+    from phi_tpu_torch.anchors.device import (MAX_HAPS, fin_chunk,
+                                              hit_buffer_len)
     n_vtx = n_vtx if n_vtx is not None else P
     n_esrc = n_esrc if n_esrc is not None else H * max(1, P // 16)
     ch = max(1, min(chunk if chunk is not None else fin_chunk(), n_hits))
@@ -135,7 +182,8 @@ def budget(H: int, P: int, L: int, spectrum: int, n_occ: int, n_hits: int,
     Hd = -(-H // hap_shards)
     occ_cols = ("occurrence columns (int64 s/span/id/hap, f32 weight)",
                 (4 * 8 + 4) * n_occ)
-    anchors = {
+    hit_path = H > MAX_HAPS
+    anchors = hit_path_rows(spectrum, w) if hit_path else {
         "hit buffers (3x int64 x CAP)": 3 * 8 * hit_buffer_len(windows, w),
         "spectrum probe table (int64)": spectrum_table_bytes(spectrum),
         "walk_mat and prefix hashes (int64 [H,P], 2x [H,P+1])":
@@ -157,8 +205,8 @@ def budget(H: int, P: int, L: int, spectrum: int, n_occ: int, n_hits: int,
             "run"] = esrc_kept + lanes_kept if one_device else 0
     wm_row = ("device cache: walk_mat and prefix hashes kept past the "
               "anchors",
-              8 * H * P + 2 * 8 * H * (P + 1) if one_device and lanes_kept
-              else 0)
+              8 * H * P + 2 * 8 * H * (P + 1)
+              if one_device and lanes_kept and not hit_path else 0)
     if stream_w is None:
         held = occ_cols[1] + 3 * 8 * n_esrc + 8 * Hd * Pd + 8 * Hd \
             + slot_row[1] + wm_row[1]
@@ -184,21 +232,30 @@ def budget(H: int, P: int, L: int, spectrum: int, n_occ: int, n_hits: int,
 
 def budget_of_run(result, k: int, w: int, capacity: int | None = None
                   ) -> dict:
-    """budget() at the shapes of one device-anchor run of run_pipeline
-    (a PipelineResult): its graph, spectrum, hits, retained occurrences,
-    chunk and the solver's layers."""
+    """budget() at the shapes of one run of run_pipeline (a
+    PipelineResult) on the device anchors or the hit path: its graph,
+    spectrum, hits, retained occurrences, chunk and the solver's
+    layers."""
     from phi_tpu_torch.solve.prep import (_bucket_layers, solver_layers,
                                           switch_sources_cached)
-    g, occ = result.graph, result.anchors.device_occ
+    g, a = result.graph, result.anchors
+    occ = a.device_occ
+    if occ is not None:
+        n_occ, n_hits, pack = occ.n_occ, occ.n_hits, occ.pack_bytes
+        max_span = occ.max_span
+    else:
+        n_occ, pack = len(a.occ_hap), 0
+        n_hits = sum(len(h[1]) for h in result.hits)
+        max_span = int((a.occ_end - a.occ_start).max()) if n_occ else 0
     L = solver_layers(g, k)
-    if occ.max_span > 0:
-        L = min(L, _bucket_layers(occ.max_span - 1))
+    if max_span > 0:
+        L = min(L, _bucket_layers(max_span - 1))
     return budget(g.num_walks, int(g.walk_mat.shape[1]), L,
-                  int(result.anchors.spectrum_size), occ.n_occ, occ.n_hits,
+                  int(a.spectrum_size), n_occ, n_hits,
                   windows=walk_windows((c[-1] for c in g.walk_node_cumlen), k,
                                        w), w=w,
                   n_vtx=g.n_vtx, n_esrc=len(switch_sources_cached(g)[0]),
-                  capacity=capacity, pack_slot=occ.pack_bytes)
+                  capacity=capacity, pack_slot=pack)
 
 
 def main(argv=None) -> int:

@@ -54,7 +54,8 @@ import torch
 
 from phi_tpu_torch import logging as plog
 from phi_tpu_torch import native
-from phi_tpu_torch.anchors.device import join_anchors_device
+from phi_tpu_torch.anchors.device import (ANCHOR_ROUTE_STATS,
+                                          join_anchors_device)
 from phi_tpu_torch.anchors.join import (AnchorTables, anchor_tables_from_hits,
                                         sketch_haplotypes)
 from phi_tpu_torch.checkpoint import load_index, save_index
@@ -250,8 +251,11 @@ def _run(gfa_path: str, reads_path: str | None, out_path: str | None,
     # --- anchor tables (host, on the hit path) + the log contract ---
     with span("anchors"):
         if hits is not None:
-            anchors = anchor_tables_from_hits(graph, opt.k, hits,
-                                              len(spectrum[0]), opt.threshold)
+            with span("native"):
+                anchors = anchor_tables_from_hits(
+                    graph, opt.k, hits, len(spectrum[0]), opt.threshold)
+        ANCHOR_ROUTE_STATS["hits" if hits is not None
+                           else anchors.device_occ.route] += 1
         plog.raw("Number of Anchors")
         for h in range(graph.num_walks):
             plog.raw(f"{graph.walk_names[h]} : {anchors.per_hap_anchors[h]}")
@@ -385,15 +389,18 @@ def _join_hits(graph, hap_codes, opt: Options, spectrum, device,
     round-robined over `devices` on a mesh), and the native host join for
     each walk it hands back (walks holding N); for k > 31 or k + w - 2
     beyond the halo, the native host join of every walk (the reference's
-    choice, pipeline.py:217-232 of the JAX package)."""
-    if opt.k > NARROW_MAX_K or opt.k + opt.w - 2 > HALO_PAD:
-        return sketch_join_walks(graph, opt.k, opt.w, *spectrum)
-    hits = join_many(hap_codes, opt.k, opt.w, *spectrum, device=device,
-                     devices=devices)
-    left = [h for h, out in enumerate(hits) if out is None]
-    for h, out in zip(left, host_join_many(hap_codes, left, opt.k, opt.w,
-                                           *spectrum)):
-        hits[h] = out
+    choice, pipeline.py:217-232 of the JAX package). One span, `hits`,
+    so its parts (join_many's plan, cuckoo and join) key apart from the
+    device anchors' spans of the same names."""
+    with span("hits"):
+        if opt.k > NARROW_MAX_K or opt.k + opt.w - 2 > HALO_PAD:
+            return sketch_join_walks(graph, opt.k, opt.w, *spectrum)
+        hits = join_many(hap_codes, opt.k, opt.w, *spectrum, device=device,
+                         devices=devices)
+        left = [h for h, out in enumerate(hits) if out is None]
+        for h, out in zip(left, host_join_many(hap_codes, left, opt.k,
+                                               opt.w, *spectrum)):
+            hits[h] = out
     return hits
 
 

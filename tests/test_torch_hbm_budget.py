@@ -6,6 +6,10 @@ allocates, on the CPU at a small size:
   and the prefix hashes, the filter's accumulators, the retained columns),
   and the filter chunk's temporaries equal the peak of new tensors alive in
   one chunk's first pass;
+- above MAX_HAPS walks, each row of the hit path's anchor stage equals the
+  nbytes of what join_many holds on the device (the mixed table, a batch's
+  inputs and hit columns) and the peak of new tensors alive in one batch's
+  join_rows;
 - each solve row equals the nbytes of S, B, W and the solver statics, and
   the sweep's working set plus W's layer step (or the streamed scratch)
   equals the peak of new tensors alive in solve_exact beside M;
@@ -237,3 +241,59 @@ def test_cli_prints_one_line_per_mesh(capsys):
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
     assert [ln["sp_shards"] for ln in lines] == [1, 4]
     assert all(ln["fits"] and ln["total_bytes"] > 0 for ln in lines)
+
+
+def test_hit_path_rows_equal_the_port_tensors(tmp_path, monkeypatch):
+    """Above MAX_HAPS walks the anchors stage is the hit path's: the
+    mixed table join_many builds, the bytes a batch holds on the device
+    until its harvest (its uploaded inputs and join_rows' outputs), and
+    the peak of new tensors alive in one join_rows, with the rows kernel's
+    outputs allocated as its launch allocates them."""
+    from phi_tpu_torch.ops import search
+    from phi_tpu_torch.sketch import kernels as tk
+    k, w, R, SB = 21, 11, 2, 2
+    (_, graph), reads = _instance(tmp_path)
+    spectrum = _spectrum(reads, k, w)
+    n_sp = len(spectrum[0])
+    seqs = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
+    seen = {}
+    _spy(monkeypatch, search, "mixed_tensors", seen)
+    monkeypatch.setattr(tk, "ROWS", R)
+    monkeypatch.setattr(tk, "SUPER_BLOCKS", SB)
+    tk.join_many(seqs, k, w, spectrum[0], spectrum[1], device="cpu")
+    table = seen["mixed_tensors"][0][1]
+    rows = hb.hit_path_rows(n_sp, w)
+    assert _nbytes(*table[:4]) == hb.mixed_table_bytes(n_sp) == \
+        rows["spectrum probe table (int64)"]
+
+    row_lanes = (SB + 1) * tk.BLK
+    _, plan = tk.plan_join_rows(seqs, k, w, SB)
+    tens = tk.pack_join_host(seqs, plan[:R], row_lanes)
+    codes = tk.unpack_2bit(tens[0], row_lanes)
+    planes = tk.sketch_rows_torch(codes, tens[1], tens[2], k, w)
+    # the launch's outputs: fresh key, pos and emit planes of these dtypes
+    monkeypatch.setattr(tk, "sketch_rows",
+                        lambda *a: tuple(t.clone() for t in planes))
+    caps = (tk.emit_cap(w, SB), tk.hit_cap(w, SB, R))
+    with LiveBytes() as lb:
+        out = tk.join_rows(*tens, table, k, w, SB, *caps)
+    assert lb.peak == rows[
+        "one batch's join temporaries (kernel planes, compaction)"]
+    assert (tk.WINDOW + 1) * (_nbytes(*tens) + _nbytes(*out)) == rows[
+        "join batches in flight (WINDOW + 1: packed codes, hit columns)"]
+
+    monkeypatch.undo()
+    H, P = 256, 1000
+    got = hb.budget(H, P, 4, n_sp, 10 ** 4, 10 ** 6, windows=10 ** 7, w=w,
+                    capacity=1 << 40)
+    anchors = got["per_device_bytes"]["anchors"]
+    assert hb.hit_path_rows(n_sp, w).items() <= anchors.items()
+    assert not [r for r in anchors if r.startswith(
+        ("hit buffers", "walk_mat", "filter", "occurrence"))]
+    assert got["per_device_bytes"]["solve"][
+        "device cache: walk_mat and prefix hashes kept past the anchors"] == 0
+    narrow = hb.budget(H - 1, P, 4, n_sp, 10 ** 4, 10 ** 6, windows=10 ** 7,
+                       w=w, capacity=1 << 40)["per_device_bytes"]
+    assert "hit buffers (3x int64 x CAP)" in narrow["anchors"]
+    assert narrow["solve"]["device cache: walk_mat and prefix hashes kept "
+                           "past the anchors"] > 0
