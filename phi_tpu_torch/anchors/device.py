@@ -80,10 +80,18 @@ WINDOW = 3
 # skips the host pack and the upload. One slot, the latest graph's, kept
 # when the run's batches are estimated at most PHI_TPU_PACK_CACHE_MB (768)
 # MiB; a run that does not keep its batches drops the slot before it
-# packs, so no stale slot stays on the device.
+# packs, so no stale slot stays on the device. The two anchor routes share
+# it: the device anchors hold (key, batches), the hit path
+# (sketch.kernels.join_many given the panel's fingerprint) holds (key,
+# batches, row plan) under a key whose route is "hits".
 _PACK_CACHE: dict = {}
-# slot hits, stores and drops since the process started
+# slot hits, stores and drops of the device anchors since the process
+# started
 PACK_CACHE_STATS = {"hits": 0, "stores": 0, "drops": 0}
+# hit-path joins since the process started: served from the slot, packed
+# and stored in it, or packed and not held (over the cap, no fingerprint,
+# or a mesh)
+HITS_SLOT_STATS = {"hits": 0, "stores": 0, "misses": 0}
 # inferences by anchors route since the process started: a device route
 # (DeviceOcc.route) or "hits", the host hit path (pipeline.py counts them)
 ANCHOR_ROUTE_STATS = {"v3": 0, "v3w": 0, "v2ck": 0, "v2mixed": 0, "hits": 0}
@@ -271,6 +279,41 @@ def graph_fingerprint(graph) -> tuple | None:
         + tuple(parts)
 
 
+def pack_cache_cap() -> int:
+    """The slot's cap in bytes: PHI_TPU_PACK_CACHE_MB (768) MiB."""
+    return int(os.environ.get("PHI_TPU_PACK_CACHE_MB", "768")) << 20
+
+
+def held_hits(key) -> tuple | None:
+    """The hit path's (batches, row plan) in the slot under `key`, while
+    they fit the cap, counted as a hit; None (and nothing counted)
+    elsewhere."""
+    slot = _PACK_CACHE.get("slot")
+    if slot is None or slot[0] != key \
+            or _batches_bytes(slot[1]) > pack_cache_cap():
+        return None
+    HITS_SLOT_STATS["hits"] += 1
+    return slot[1], slot[2]
+
+
+def hits_slot_miss(est_bytes: int) -> list | None:
+    """A hit-path join that missed the slot: drop the slot before the join
+    packs, and return the list its uploaded batches go into where
+    `est_bytes` fits the cap (stored by hold_hits), else None, counted as
+    a miss."""
+    _PACK_CACHE.pop("slot", None)
+    if est_bytes <= pack_cache_cap():
+        return []
+    HITS_SLOT_STATS["misses"] += 1
+    return None
+
+
+def hold_hits(key, batches: list, plan: tuple) -> None:
+    """Keep a hit-path join's uploaded batches and its row plan."""
+    _PACK_CACHE["slot"] = (key, batches, plan)
+    HITS_SLOT_STATS["stores"] += 1
+
+
 def _drop_pack_slot() -> None:
     if _PACK_CACHE.pop("slot", None) is not None:
         PACK_CACHE_STATS["drops"] += 1
@@ -282,7 +325,7 @@ def clear_pack_cache() -> None:
 
 
 def pack_cache_bytes() -> int:
-    """Device bytes of the batches in the slot."""
+    """Device bytes of the batches in the slot (either route's)."""
     slot = _PACK_CACHE.get("slot")
     return 0 if slot is None else _batches_bytes(slot[1])
 
@@ -382,11 +425,10 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
             table = mixed_tensors(sp_hi, sp_lo, device)
 
     # the slot: the reference's estimate of the run's batch bytes
-    cache_mb = int(os.environ.get("PHI_TPU_PACK_CACHE_MB", "768"))
     est_batch_bytes = R * (row_lanes // 4
                            + (S_cap * 4 if use_v3 else row_lanes))
     cache_key = cached = None
-    if n_batches * est_batch_bytes <= cache_mb << 20:
+    if n_batches * est_batch_bytes <= pack_cache_cap():
         with span("fingerprint"):
             fp = graph_fingerprint(graph)
         if fp is not None:

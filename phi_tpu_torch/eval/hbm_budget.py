@@ -19,13 +19,14 @@ Two stages hold the device's memory, one after the other:
            or the streamed scratch, the switch sources and the state
            tables (int64), and the occurrence columns.
 Both stages also count what the cross-run caches hold: the packed-batch
-slot (the run's batches, when they are at most PHI_TPU_PACK_CACHE_MB),
-the solver's switch sources and lane tables kept from an earlier run
-(each array at most PHI_TPU_DEV_CACHE_MB, so that a re-run finds them by
-content) in the anchors stage, and walk_mat and its prefix hashes, which
-the device cache keeps past the anchors stage when walk_mat is at most
-PHI_TPU_DEV_CACHE_MB, in the solve stage (one device: a mesh run takes
-the host hit path).
+slot (the run's batches, when they are at most PHI_TPU_PACK_CACHE_MB, on
+either route: on the hit path the batches in flight are then the slot's,
+so their codes count twice), the solver's switch sources and lane tables
+kept from an earlier run (each array at most PHI_TPU_DEV_CACHE_MB, so
+that a re-run finds them by content) in the anchors stage, and walk_mat
+and its prefix hashes, which the device cache keeps past the anchors
+stage when walk_mat is at most PHI_TPU_DEV_CACHE_MB, in the solve stage
+(one device: a mesh run takes the host hit path).
 A stage's bytes are the sum of its rows, some of which are not alive at
 once (the filter's chunk temporaries end before its retained columns are
 written), so they bound its peak from above; the total is the larger
@@ -234,8 +235,9 @@ def budget_of_run(result, k: int, w: int, capacity: int | None = None
                   ) -> dict:
     """budget() at the shapes of one run of run_pipeline (a
     PipelineResult) on the device anchors or the hit path: its graph,
-    spectrum, hits, retained occurrences, chunk and the solver's
-    layers."""
+    spectrum, hits, retained occurrences, chunk, the solver's layers and
+    the packed-batch slot's bytes (the device anchors' from the run, the
+    hit path's as the slot holds them now)."""
     from phi_tpu_torch.solve.prep import (_bucket_layers, solver_layers,
                                           switch_sources_cached)
     g, a = result.graph, result.anchors
@@ -244,7 +246,8 @@ def budget_of_run(result, k: int, w: int, capacity: int | None = None
         n_occ, n_hits, pack = occ.n_occ, occ.n_hits, occ.pack_bytes
         max_span = occ.max_span
     else:
-        n_occ, pack = len(a.occ_hap), 0
+        from phi_tpu_torch.anchors.device import pack_cache_bytes
+        n_occ, pack = len(a.occ_hap), pack_cache_bytes()
         n_hits = sum(len(h[1]) for h in result.hits)
         max_span = int((a.occ_end - a.occ_start).max()) if n_occ else 0
     L = solver_layers(g, k)

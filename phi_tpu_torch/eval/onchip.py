@@ -51,15 +51,17 @@ def _calm_summary(warm_times):
 
 
 def cache_counts() -> dict:
-    """The cross-run caches' counters since the process started, the
-    inferences by anchors route (`anchor_route`), and the device bytes the
-    caches hold now."""
+    """The cross-run caches' counters since the process started (the
+    packed-batch slot's by route: `pack_slot` for the device anchors,
+    `hits_slot` for the hit path), the inferences by anchors route
+    (`anchor_route`), and the device bytes the caches hold now."""
     from phi_tpu_torch.anchors import device as danchors
     from phi_tpu_torch.graph import pangenome
     from phi_tpu_torch.solve import dp, prep
     return {"panel": dict(pangenome.PANEL_CACHE_STATS),
             "pack_slot": dict(danchors.PACK_CACHE_STATS),
             "pack_slot_bytes": danchors.pack_cache_bytes(),
+            "hits_slot": dict(danchors.HITS_SLOT_STATS),
             "anchor_route": dict(danchors.ANCHOR_ROUTE_STATS),
             "dev_cache": dict(dp.DEV_CACHE_STATS),
             "dev_cache_keys": len(dp._DEV_CACHE),

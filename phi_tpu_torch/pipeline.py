@@ -55,6 +55,7 @@ import torch
 from phi_tpu_torch import logging as plog
 from phi_tpu_torch import native
 from phi_tpu_torch.anchors.device import (ANCHOR_ROUTE_STATS,
+                                          HITS_SLOT_STATS, graph_fingerprint,
                                           join_anchors_device)
 from phi_tpu_torch.anchors.join import (AnchorTables, anchor_tables_from_hits,
                                         sketch_haplotypes)
@@ -389,14 +390,24 @@ def _join_hits(graph, hap_codes, opt: Options, spectrum, device,
     round-robined over `devices` on a mesh), and the native host join for
     each walk it hands back (walks holding N); for k > 31 or k + w - 2
     beyond the halo, the native host join of every walk (the reference's
-    choice, pipeline.py:217-232 of the JAX package). One span, `hits`,
-    so its parts (join_many's plan, cuckoo and join) key apart from the
-    device anchors' spans of the same names."""
+    choice, pipeline.py:217-232 of the JAX package). On one device
+    join_many is given the graph's content fingerprint, so it may serve
+    the walks' packed batches from the packed-batch slot; a mesh, or a
+    graph too large to fingerprint, packs every join (a miss of
+    HITS_SLOT_STATS). One span, `hits`, so its parts (fingerprint and
+    join_many's plan, cuckoo and join) key apart from the device anchors'
+    spans of the same names."""
     with span("hits"):
         if opt.k > NARROW_MAX_K or opt.k + opt.w - 2 > HALO_PAD:
             return sketch_join_walks(graph, opt.k, opt.w, *spectrum)
+        panel = None
+        if devices is None:
+            with span("fingerprint"):
+                panel = graph_fingerprint(graph)
+        if panel is None:
+            HITS_SLOT_STATS["misses"] += 1
         hits = join_many(hap_codes, opt.k, opt.w, *spectrum, device=device,
-                         devices=devices)
+                         devices=devices, panel=panel)
         left = [h for h, out in enumerate(hits) if out is None]
         for h, out in zip(left, host_join_many(hap_codes, left, opt.k,
                                                opt.w, *spectrum)):

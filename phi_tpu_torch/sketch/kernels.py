@@ -923,7 +923,7 @@ WINDOW = 3
 
 def join_many(seqs: list[np.ndarray], k: int, w: int, sp_hi, sp_lo, *,
               device, devices=None, rows_per_call: int | None = None,
-              super_blocks: int | None = None):
+              super_blocks: int | None = None, panel: tuple | None = None):
     """Sketch + join of many sequences against the read spectrum (the port
     of pallas_join_many): per sequence, (n_minimizers, hit positions int32,
     hit spectrum ids int32), hits in position order. A sequence holding N
@@ -944,6 +944,17 @@ def join_many(seqs: list[np.ndarray], k: int, w: int, sp_hi, sp_lo, *,
     two; n_min is exact either way, and since batches carry nothing the
     rerun touches no other batch. Spans (trace.py): plan, cuckoo and join
     (its batches' pack_wait, dispatch and harvest).
+
+    `panel` is the content fingerprint of the graph whose walks the
+    sequences are (anchors.device.graph_fingerprint). With it, a join on
+    one device keys the packed-batch slot by it, (k, w), the geometry,
+    the route "hits" and the device: on a hit the row plan and the
+    uploaded batches come from the slot, so plan and pack_wait read ~0
+    and nothing is packed or uploaded; on a miss the join drops the slot,
+    packs and uploads as without it, and keeps its plan and batches there
+    when their bytes fit PHI_TPU_PACK_CACHE_MB. The sample's part (the
+    spectrum table, every batch's join, reruns, the harvest) runs either
+    way. anchors.device.HITS_SLOT_STATS counts each keyed join.
 
     With `devices` (a mesh's devices, which may repeat), the sequences are
     round-robined over them, sequence j on devices[j % len(devices)], each
@@ -969,18 +980,27 @@ def join_many(seqs: list[np.ndarray], k: int, w: int, sp_hi, sp_lo, *,
     from phi_tpu_torch import state
     from phi_tpu_torch.ops.search import mixed_tensors
     from phi_tpu_torch.trace import span
+    from phi_tpu_torch.anchors import device as danchors
     device = torch.device(device)
     super_blocks = super_blocks or SUPER_BLOCKS
     row_lanes = (super_blocks + 1) * BLK
+    R = rows_per_call or ROWS
+    key = None if panel is None else \
+        tuple(panel) + (k, w, R, super_blocks, "hits", str(device))
     with span("plan"):
-        results, rows = plan_join_rows(seqs, k, w, super_blocks)
+        held = None if key is None else danchors.held_hits(key)
+        plan = held[1] if held is not None else \
+            plan_join_rows(seqs, k, w, super_blocks)
+    results, rows = list(plan[0]), plan[1]
     if not rows:
         return results
+    n_batches = -(-len(rows) // R)
+    # the list this join's batches go into when the slot is to keep them
+    keep = danchors.hits_slot_miss(n_batches * R * (row_lanes // 4 + 8)) \
+        if key is not None and held is None else None
     with span("cuckoo"):
         table = mixed_tensors(sp_hi, sp_lo, device)
-    R = rows_per_call or ROWS
     caps = (emit_cap(w, super_blocks), hit_cap(w, super_blocks, R))
-    n_batches = -(-len(rows) // R)
     padded = rows + [(-1, 0, 0, 0)] * (n_batches * R - len(rows))
     pin = device.type == "cuda"
 
@@ -1013,24 +1033,30 @@ def join_many(seqs: list[np.ndarray], k: int, w: int, sp_hi, sp_lo, *,
                        state.fetch(out[3][:tot]))
 
     with span("join"):
-        packer = ThreadPoolExecutor(1)
+        packer = ThreadPoolExecutor(1) if held is None else None
         try:
-            fut = packer.submit(pack, 0)
+            if packer is not None:
+                fut = packer.submit(pack, 0)
             for b in range(n_batches):
                 with span("pack_wait"):
-                    host = fut.result()
-                if b + 1 < n_batches:
+                    got = held[0][b] if held is not None else fut.result()
+                if packer is not None and b + 1 < n_batches:
                     fut = packer.submit(pack, b + 1)
                 with span("dispatch"):
-                    tens = state.upload(host, device)
-                    del host
-                    pend[b] = [tens, *dispatch(tens, *caps)]
+                    if held is None:
+                        got = state.upload(got, device)
+                        if keep is not None:
+                            keep.append(got)
+                    pend[b] = [got, *dispatch(got, *caps)]
                 if b >= WINDOW:
                     harvest(b - WINDOW)
             for b in range(max(0, n_batches - WINDOW), n_batches):
                 harvest(b)
         finally:
-            packer.shutdown(wait=False, cancel_futures=True)
+            if packer is not None:
+                packer.shutdown(wait=False, cancel_futures=True)
+        if keep is not None:
+            danchors.hold_hits(key, keep, plan)
         acc: dict[int, tuple[int, list, list]] = {}
         with span("harvest"):
             for b in range(n_batches):
