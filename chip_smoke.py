@@ -141,22 +141,22 @@ Phases, in order; any failure exits non-zero:
      add up, the six other samples' shards reported missing; (g) phase
      13b's matrix CSV through read_matrix_csv (its reads, coverages and
      the 1x edit); no figure is drawn.
- 17. the join pipelines and the cross-run device caches, with the
-     join's spans (the sketch_haps_* keys of timings) logged: (a) after
-     15d, the warm chromosome run's join_anchors_device alone with
-     PHI_TPU_PACK_WORKERS=1 and with the default 3: per_hap_min and every
-     DeviceOcc column array-equal to the warm run's, each wall, and the
-     card's busy share of each (a second call under torch.profiler),
+ 17. the join pipelines and the packed batches the held graph keeps,
+     with the join's spans (the sketch_haps_* keys of timings) logged:
+     (a) after 15d, the warm chromosome run's join_anchors_device alone
+     with PHI_TPU_PACK_WORKERS=1 and with the default 3: per_hap_min and
+     every DeviceOcc column array-equal to the warm run's, each wall, and
+     the card's busy share of each (a second call under torch.profiler),
      and the time of the walks' codes the pipeline reads first; (b)
-     after phase 4's warm run, a third run from the packed-batch slot:
-     one slot hit, the warm run's rows3 launches and FASTA byte for byte,
-     its sketch_haps and solve_tables beside the warm run's, and a run
-     with the slot off (PHI_TPU_PACK_CACHE_MB=0) beside them; (c) in
-     16b, every pipeline run on the one panel after the first hits the
-     slot; (d) after phase 3, its graph on another node chop (every
-     segment cut in two) misses the slot: its key holds the node
-     lengths; the same per-walk minimizer counts, and the DeviceOcc of a
-     run with the slot emptied.
+     after phase 4's warm run, a third run from the graph's batches: one
+     hit, the warm run's rows3 launches and FASTA byte for byte, its
+     sketch_haps and solve_tables beside the warm run's, and a run with
+     no batches kept (the memo's limit at 0) beside them; (c) in 16b,
+     every pipeline run on the one panel after the first hits the
+     batches; (d) after phase 3, its graph on another node chop (every
+     segment cut in two), a second graph, packs its own batches; the
+     same per-walk minimizer counts, and the DeviceOcc of a run after its
+     graph is released.
  18. the mesh's measured collectives (eval.mesh_trace.run) on 4 shards of
      cuda:0: (a) after phase 14, the phase-4 instance (49 x 5 Mbp, 1x, -k
      31 -w 25 -R 100) end to end, the pipeline on one device (rows3) and
@@ -1931,6 +1931,20 @@ def env_set(**kv):
                 os.environ[k] = v
 
 
+@contextlib.contextmanager
+def batches_off():
+    """No packed batches kept in a graph's memo for the block (its limit,
+    graph.pangenome.BATCHES_MAX_BYTES, at 0), restored after it: every
+    join packs and uploads every batch."""
+    from phi_tpu_torch.graph import pangenome
+    saved = pangenome.BATCHES_MAX_BYTES
+    pangenome.BATCHES_MAX_BYTES = 0
+    try:
+        yield
+    finally:
+        pangenome.BATCHES_MAX_BYTES = saved
+
+
 def join_spans(timings: dict) -> str:
     """The join's spans of a run's timings (the sketch_haps_* keys), as
     name=seconds."""
@@ -1941,8 +1955,8 @@ def join_spans(timings: dict) -> str:
 
 def phase17a(jargs, jkw, want_min, want) -> int:
     """Phase 17a: the warm chromosome run's join again, alone, with 1 pack
-    worker and with the default 3, with the packed-batch slot off (its
-    batches pass the slot's gate anyway, as they do in the JAX package):
+    worker and with the default 3, with no batches kept (batches_off; its
+    batches pass the memo's limit anyway, as they do in the JAX package):
     per_hap_min and every DeviceOcc column array-equal across the two and
     to the warm run's, each wall, the join's spans and the card's busy
     share (a second call under torch.profiler, over the first call's
@@ -1961,16 +1975,15 @@ def phase17a(jargs, jkw, want_min, want) -> int:
 
     walls = {}
     for workers in ("1", "3"):
-        # the slot off, so that both pack every batch at any size
-        with env_set(PHI_TPU_PACK_WORKERS=workers,
-                     PHI_TPU_PACK_CACHE_MB="0"):
+        # no batches kept, so that both pack every batch at any size
+        with env_set(PHI_TPU_PACK_WORKERS=workers), batches_off():
             zero_launches()
             with recording() as spans, span("sketch_haps"):
                 t0 = time.time()
                 got_min, got = join()
                 walls[workers] = time.time() - t0
             n = read_launches()
-        with env_set(PHI_TPU_PACK_WORKERS=workers, PHI_TPU_PACK_CACHE_MB="0"):
+        with env_set(PHI_TPU_PACK_WORKERS=workers), batches_off():
             busy = profiled_busy(join)
         same = np.array_equal(got_min, want_min) and same_occ(got, want)
         log(f"phase 17a PHI_TPU_PACK_WORKERS={workers}: join_anchors_device "
@@ -1996,23 +2009,22 @@ def phase17a(jargs, jkw, want_min, want) -> int:
 
 
 def phase17b(big, dev, warm) -> int:
-    """Phase 17b: phase 4 a third time, hitting the packed-batch slot the
-    cold run stored: the hit logged, the warm run's rows3 launches, its
-    FASTA byte for byte, the join's spans, sketch_haps and solve_tables
-    beside the warm run's; then once with the slot off
-    (PHI_TPU_PACK_CACHE_MB=0), which packs and uploads every batch.
+    """Phase 17b: phase 4 a third time, hitting the packed batches the
+    cold run kept in the held graph's memo: the hit logged, the warm
+    run's rows3 launches, its FASTA byte for byte, the join's spans,
+    sketch_haps and solve_tables beside the warm run's; then once with no
+    batches kept (batches_off), which packs and uploads every batch.
     `warm`: the warm run's (result, launches, FASTA path). Returns 0, or 1
     after a failure line."""
     from phi_tpu_torch.eval import onchip
     r_w, n_w, fa_w = warm
     flags = ["-k", "31", "-w", "25", "-R", "100"]
     rows = [("warm", r_w, None)]
-    for label, env in (("third", {}), ("slot off",
-                                       {"PHI_TPU_PACK_CACHE_MB": "0"})):
+    for label, off in (("third", False), ("slot off", True)):
         out = os.path.join(os.path.dirname(big["gfa"]),
                            f"port_k31_{label.replace(' ', '_')}.fa")
         before = onchip.cache_counts()
-        with env_set(**env):
+        with batches_off() if off else contextlib.nullcontext():
             r, wall, n, peak = run_counted(big, out, flags, dev)
         delta = onchip.cache_delta(before, onchip.cache_counts())
         same = same_file(out, fa_w)
@@ -2068,11 +2080,10 @@ def rechop_copy(src: str, dst: str) -> None:
 
 def phase17d(small, dev) -> int:
     """Phase 17d: phase 3's graph, then a copy of it on another node chop
-    (rechop_copy): the copy misses the slot the first stored (the key
-    holds the node lengths), its per-walk minimizer counts equal the
-    first's (the same walk sequences), and its DeviceOcc equals a run of
-    it with the slot emptied first. Returns 0, or 1 after a failure
-    line."""
+    (rechop_copy): two graphs, so the copy packs and keeps its own
+    batches, its per-walk minimizer counts equal the first's (the same
+    walk sequences), and its DeviceOcc equals a run of it after its
+    graph is released. Returns 0, or 1 after a failure line."""
     import numpy as np
     from phi_tpu_torch import pipeline
     from phi_tpu_torch.anchors import device as danchors
@@ -2095,17 +2106,16 @@ def phase17d(small, dev) -> int:
     before = onchip.cache_counts()
     second = join(graphs[1])
     delta = onchip.cache_delta(before, onchip.cache_counts())
-    danchors.clear_pack_cache()
+    graphs[1].release()
     cold = join(graphs[1])
     n = read_launches()
-    fps = [danchors.graph_fingerprint(g) for g in graphs]
     same_min = np.array_equal(first[0], second[0])
     log(f"phase 17d: {graphs[0].n_vtx} nodes re-chopped into "
-        f"{graphs[1].n_vtx}; fingerprints differ {fps[0] != fps[1]}; the "
-        f"copy's join: caches {json.dumps(delta)}, per-walk minimizers == "
-        f"phase 3's graph's {same_min}, DeviceOcc == a cold run's "
-        f"{same_occ(second[1], cold[1])}; launches {json.dumps(n)} ({CARD})")
-    if fps[0] == fps[1] or delta["pack_slot"]["hits"] \
+        f"{graphs[1].n_vtx}; the copy's join: caches {json.dumps(delta)}, "
+        f"per-walk minimizers == phase 3's graph's {same_min}, DeviceOcc "
+        f"== a cold run's {same_occ(second[1], cold[1])}; launches "
+        f"{json.dumps(n)} ({CARD})")
+    if delta["pack_slot"]["hits"] \
             or delta["pack_slot"]["stores"] != 1 or not same_min \
             or not same_occ(second[1], cold[1]):
         return fail("phase 17d: the re-chopped graph hit the slot or its "

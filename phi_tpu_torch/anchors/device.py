@@ -41,23 +41,24 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
-import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from phi_tpu_torch.graph.pangenome import PangenomeGraph
+from phi_tpu_torch.graph import pangenome
+from phi_tpu_torch.graph.pangenome import (PangenomeGraph, max_kmer_span,
+                                          memoized)
 from phi_tpu_torch import state
 from phi_tpu_torch.ops.search import make_cuckoo, mixed_tensors, mul32
-from phi_tpu_torch.sketch.kernels import (BLK, HALO_PAD, NARROW_MAX_K, ROWS,
-                                          SUPER_BLOCKS, block_cap, emit_cap,
-                                          hit_cap, join_rows2, join_rows2_ck,
-                                          join_rows3, join_rows3w,
-                                          pack_row_deltas, pack_row_left,
-                                          pack_rows_2bit, row_base_nodes)
-from phi_tpu_torch.solve.dp import _dev_cached, content_keyed
-from phi_tpu_torch.solve.prep import max_kmer_span
+from phi_tpu_torch.sketch.kernels import (BATCHES, BLK, HALO_PAD,
+                                          NARROW_MAX_K, ROWS, SUPER_BLOCKS,
+                                          batches_bytes, block_cap, emit_cap,
+                                          held_batches, hit_cap, join_rows2,
+                                          join_rows2_ck, join_rows3,
+                                          join_rows3w, pack_row_deltas,
+                                          pack_row_left, pack_rows_2bit,
+                                          row_base_nodes)
 from phi_tpu_torch.trace import span
 
 _M32 = 0xFFFFFFFF
@@ -74,28 +75,12 @@ FIN_CHUNK = 1 << 26
 # queued, so the host never waits on the batch the card is running
 WINDOW = 3
 
-# The packed-batch device cache: a batch's tensors are a pure function of
-# the graph's content and (k, w, R, SB, route, S_cap), so a re-run on the
-# same graph (best-of-N, parameter sweeps, the grid's cells on one panel)
-# skips the host pack and the upload. One slot, the latest graph's, kept
-# when the run's batches are estimated at most PHI_TPU_PACK_CACHE_MB (768)
-# MiB; a run that does not keep its batches drops the slot before it
-# packs, so no stale slot stays on the device. The two anchor routes share
-# it: the device anchors hold (key, batches), the hit path
-# (sketch.kernels.join_many given the panel's fingerprint) holds (key,
-# batches, row plan) under a key whose route is "hits".
-_PACK_CACHE: dict = {}
-# slot hits, stores and drops of the device anchors since the process
-# started
+# the packed batches in the graph's memo (sketch.kernels.BATCHES): hits,
+# stores and drops of the device anchors since the process started
 PACK_CACHE_STATS = {"hits": 0, "stores": 0, "drops": 0}
-# hit-path joins since the process started: served from the slot, packed
-# and stored in it, or packed and not held (over the cap, no fingerprint,
-# or a mesh)
-HITS_SLOT_STATS = {"hits": 0, "stores": 0, "misses": 0}
 # inferences by anchors route since the process started: a device route
 # (DeviceOcc.route) or "hits", the host hit path (pipeline.py counts them)
 ANCHOR_ROUTE_STATS = {"v3": 0, "v3w": 0, "v2ck": 0, "v2mixed": 0, "hits": 0}
-_FINGERPRINT_MAX_BYTES = 256 << 20
 
 
 def _fallback(msg: str) -> None:
@@ -180,7 +165,7 @@ class DeviceOcc:
     n_chunks: int = 1        # passes of fin_chunk() hits the filter took
     n_amb: int = 0           # occurrences of ambiguous k-mers
     owner_rounds: int = 0    # rounds of the ownership loop
-    pack_bytes: int = 0      # device bytes of this run's batches in the slot
+    pack_bytes: int = 0      # device bytes of this run's batches the graph keeps
     route: str = ""          # the kernel route: v3, v3w, v2ck or v2mixed
 
     def materialize(self):
@@ -258,80 +243,11 @@ def pack_batch(seqs, cumlens, batch, row_lanes: int, S_cap: int | None):
             np.array([max(r[0], 0) for r in batch], np.int32))
 
 
-def _crc(a) -> tuple[int, int]:
-    b = np.ascontiguousarray(a)
-    return zlib.crc32(b), zlib.adler32(b)
-
-
-def graph_fingerprint(graph) -> tuple | None:
-    """Content fingerprint of what the packed batches derive from: the node
-    sequences, the node lengths (the walks' segmentation into nodes),
-    walk_mat and walk_len; None when the node sequences pass 256 MiB. The
-    reference's fingerprint leaves the node lengths out, so two graphs
-    with the same walk sequences and another chop would share a slot."""
-    g = graph.gfa
-    if g.seq_code.nbytes > _FINGERPRINT_MAX_BYTES:
-        return None
-    parts = []
-    for a in (g.seq_code, g.node_len, graph.walk_mat, graph.walk_len):
-        parts += _crc(a)
-    return (graph.n_vtx, graph.num_walks) + graph.walk_mat.shape \
-        + tuple(parts)
-
-
-def pack_cache_cap() -> int:
-    """The slot's cap in bytes: PHI_TPU_PACK_CACHE_MB (768) MiB."""
-    return int(os.environ.get("PHI_TPU_PACK_CACHE_MB", "768")) << 20
-
-
-def held_hits(key) -> tuple | None:
-    """The hit path's (batches, row plan) in the slot under `key`, while
-    they fit the cap, counted as a hit; None (and nothing counted)
-    elsewhere."""
-    slot = _PACK_CACHE.get("slot")
-    if slot is None or slot[0] != key \
-            or _batches_bytes(slot[1]) > pack_cache_cap():
-        return None
-    HITS_SLOT_STATS["hits"] += 1
-    return slot[1], slot[2]
-
-
-def hits_slot_miss(est_bytes: int) -> list | None:
-    """A hit-path join that missed the slot: drop the slot before the join
-    packs, and return the list its uploaded batches go into where
-    `est_bytes` fits the cap (stored by hold_hits), else None, counted as
-    a miss."""
-    _PACK_CACHE.pop("slot", None)
-    if est_bytes <= pack_cache_cap():
-        return []
-    HITS_SLOT_STATS["misses"] += 1
-    return None
-
-
-def hold_hits(key, batches: list, plan: tuple) -> None:
-    """Keep a hit-path join's uploaded batches and its row plan."""
-    _PACK_CACHE["slot"] = (key, batches, plan)
-    HITS_SLOT_STATS["stores"] += 1
-
-
-def _drop_pack_slot() -> None:
-    if _PACK_CACHE.pop("slot", None) is not None:
-        PACK_CACHE_STATS["drops"] += 1
-
-
-def clear_pack_cache() -> None:
-    """Drop the packed-batch slot."""
-    _PACK_CACHE.clear()
-
-
 def pack_cache_bytes() -> int:
-    """Device bytes of the batches in the slot (either route's)."""
-    slot = _PACK_CACHE.get("slot")
-    return 0 if slot is None else _batches_bytes(slot[1])
-
-
-def _batches_bytes(batches) -> int:
-    return sum(t.nbytes for tens in batches for t in tens)
+    """Device bytes of the packed batches the held panel keeps (either
+    route's)."""
+    graph = pangenome.held_graph()
+    return 0 if graph is None else batches_bytes(graph.memo)
 
 
 def hit_buffer_len(windows: int, w: int, super_blocks: int = SUPER_BLOCKS,
@@ -359,10 +275,10 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
     thread uploads, launches and appends them in batch order, so the
     result is the same for any worker count, and reads each batch's
     counts WINDOW batches later. A worker's exception is raised here. The
-    packed batches are kept on the device for a re-run on the same graph
-    (the slot above). Spans (trace.py): plan, cuckoo, fingerprint, join
-    (its batches' pack_wait, dispatch and harvest), walk_hashes and
-    filter."""
+    packed batches are kept on the device in the graph's memo for a later
+    run on the same graph (sketch.kernels.BATCHES). Spans (trace.py):
+    plan, cuckoo, join (its batches' pack_wait, dispatch and harvest),
+    walk_hashes and filter."""
     device = torch.device(device)
     R = rows_per_call or ROWS
     SB = super_blocks or SUPER_BLOCKS
@@ -424,23 +340,22 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
         else:
             table = mixed_tensors(sp_hi, sp_lo, device)
 
-    # the slot: the reference's estimate of the run's batch bytes
-    est_batch_bytes = R * (row_lanes // 4
-                           + (S_cap * 4 if use_v3 else row_lanes))
-    cache_key = cached = None
-    if n_batches * est_batch_bytes <= pack_cache_cap():
-        with span("fingerprint"):
-            fp = graph_fingerprint(graph)
-        if fp is not None:
-            cache_key = fp + (k, w, R, SB, route, S_cap, str(device))
-            slot = _PACK_CACHE.get("slot")
-            if slot is not None and slot[0] == cache_key \
-                    and len(slot[1]) == n_batches:
-                cached = slot[1]
-                PACK_CACHE_STATS["hits"] += 1
-    if cached is None:
-        _drop_pack_slot()  # before this run allocates
-    new_cache = [] if cache_key is not None and cached is None else None
+    # the graph's packed batches: a hit where its memo holds them for this
+    # join's parameters and the reference's estimate of their bytes fits
+    # the limit; else the entry is dropped before this run allocates, and
+    # the run keeps its own batches where they fit
+    fits = n_batches * R * (row_lanes // 4 + (S_cap * 4 if use_v3
+                                              else row_lanes)) \
+        <= pangenome.BATCHES_MAX_BYTES
+    params = (k, w, R, SB, route, S_cap, str(device))
+    held = held_batches(graph.memo, params) if fits else None
+    if held is not None:
+        cached, keep = held[0], None
+        PACK_CACHE_STATS["hits"] += 1
+    else:
+        cached, keep = None, [] if fits else None
+        if graph.memo.pop(BATCHES, None) is not None:
+            PACK_CACHE_STATS["drops"] += 1
 
     def join(tens):
         """(n_min, n_hit, f_se, f_id, f_hap, over): over is the per-row
@@ -494,8 +409,8 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
                     if cached is None:
                         tens = state.upload(host, device)
                         del host
-                        if new_cache is not None:
-                            new_cache.append(tens)
+                        if keep is not None:
+                            keep.append(tens)
                     else:
                         tens = cached[b]
                     nm, nh, f_se, f_id, f_hap, over = join(tens)
@@ -515,11 +430,10 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
         finally:
             if pool is not None:
                 pool.shutdown(wait=False, cancel_futures=True)
-        if new_cache is not None:
-            _PACK_CACHE["slot"] = (cache_key, new_cache)
+        if keep is not None:
+            graph.memo[BATCHES] = (params, keep, None)
             PACK_CACHE_STATS["stores"] += 1
-        pack_bytes = 0 if cache_key is None else \
-            _batches_bytes(_PACK_CACHE["slot"][1])
+        pack_bytes = batches_bytes(graph.memo) if fits else 0
 
         total_hits = int(counts[:, 1].sum())
         if total_hits > CAP - cap_total:
@@ -543,14 +457,13 @@ def join_anchors_device(graph: PangenomeGraph, seqs: list[np.ndarray],
                 if si >= 0:
                     per_hap_min[si] += int(counts[b, 0, j])
 
-    # walk_mat and its prefix hashes (24 B a lane): graph-static, kept on
-    # the device where a re-run finds them by content; above the gate
-    # only an id key would hold them, through the solve and for no later
-    # run (the pipeline loads the graph anew), so they are this run's
+    # walk_mat and its prefix hashes (24 B a lane): graph-static, kept in
+    # the graph's memo where walk_mat fits the limit; above it the join
+    # builds them for itself
     with span("walk_hashes"):
-        if content_keyed(graph.walk_mat):
-            walk_mat, ph1, ph2 = _dev_cached(
-                graph.walk_mat, ("wm_ph",), device,
+        if graph.walk_mat.nbytes <= pangenome.WALK_HASHES_MAX_BYTES:
+            walk_mat, ph1, ph2 = memoized(
+                graph.memo, ("walk_hashes", str(device)),
                 lambda: _walk_hashes(graph, device))
         else:
             walk_mat, ph1, ph2 = _walk_hashes(graph, device)

@@ -40,6 +40,13 @@ class AnchorTables:
     per_hap_minimizers: np.ndarray  # int64 [H]
     per_hap_anchors: np.ndarray     # int64 [H] retained occurrences (incl. span 0)
     device_occ: object | None = None  # anchors.device.DeviceOcc
+    # what the solver derives from this sample's occurrence columns (the
+    # first occurrence of each k-mer, the lanes' start order, the hit
+    # path's device index columns), keyed by (name, parameters...);
+    # dataclasses.replace carries it to the ladder's rounds, which change
+    # only occ_weight
+    memo: dict = dataclasses.field(default_factory=dict, repr=False,
+                                   compare=False)
 
     @classmethod
     def on_device(cls, per_hap_minimizers, occ, spectrum_size: int

@@ -18,15 +18,15 @@ Two stages hold the device's memory, one after the other:
   solve    S, B, M (f32 [H, P]), the sweep's working set, W (f32 [L, H, P])
            or the streamed scratch, the switch sources and the state
            tables (int64), and the occurrence columns.
-Both stages also count what the cross-run caches hold: the packed-batch
-slot (the run's batches, when they are at most PHI_TPU_PACK_CACHE_MB, on
-either route: on the hit path the batches in flight are then the slot's,
-so their codes count twice), the solver's switch sources and lane tables
-kept from an earlier run (each array at most PHI_TPU_DEV_CACHE_MB, so
-that a re-run finds them by content) in the anchors stage, and walk_mat
-and its prefix hashes, which the device cache keeps past the anchors
-stage when walk_mat is at most PHI_TPU_DEV_CACHE_MB, in the solve stage
-(one device: a mesh run takes the host hit path).
+Both stages also count what the graph's memo (graph.pangenome) keeps on
+the device from one run to the next: the packed batches (the run's, where
+they are at most BATCHES_MAX_BYTES, on either route: on the hit path the
+batches in flight are then the memo's, so their codes count twice), the
+solver's switch sources and lane tables at any size, in the anchors stage
+(the solve stage counts them as its own), and walk_mat and its prefix
+hashes, which the memo keeps past the anchors stage where walk_mat is at
+most WALK_HASHES_MAX_BYTES, in the solve stage (one device: a mesh run
+takes the host hit path and keeps no statics).
 A stage's bytes are the sum of its rows, some of which are not alive at
 once (the filter's chunk temporaries end before its retained columns are
 written), so they bound its peak from above; the total is the larger
@@ -166,12 +166,11 @@ def budget(H: int, P: int, L: int, spectrum: int, n_occ: int, n_hits: int,
     streamed solve, or None for the solver's rule against `capacity` less
     what the solve finds allocated; capacity: the device's bytes (default
     the first card's total memory; None on a machine without one);
-    pack_slot: the bytes of the run's batches in the packed-batch slot (0
-    when they pass its gate)."""
-    import os
-
+    pack_slot: the bytes of the run's batches the graph keeps (0 above
+    BATCHES_MAX_BYTES)."""
     from phi_tpu_torch.anchors.device import (MAX_HAPS, fin_chunk,
                                               hit_buffer_len)
+    from phi_tpu_torch.graph.pangenome import WALK_HASHES_MAX_BYTES
     n_vtx = n_vtx if n_vtx is not None else P
     n_esrc = n_esrc if n_esrc is not None else H * max(1, P // 16)
     ch = max(1, min(chunk if chunk is not None else fin_chunk(), n_hits))
@@ -195,19 +194,16 @@ def budget(H: int, P: int, L: int, spectrum: int, n_occ: int, n_hits: int,
         occ_cols[0]: occ_cols[1],
     }
     one_device = sp_shards == hap_shards == 1
-    gate = int(os.environ.get("PHI_TPU_DEV_CACHE_MB", "256")) << 20
-    # the cached int32 sources: esrc h/p/target [n_esrc]; walk_mat [H, P]
-    esrc_kept = 3 * 8 * n_esrc if 4 * n_esrc <= gate else 0
-    lanes_kept = 8 * H * P + 8 * H if 4 * H * P <= gate else 0
-    slot_row = ("packed-batch cache slot (<= PHI_TPU_PACK_CACHE_MB)",
+    slot_row = ("packed batches held by the graph (<= BATCHES_MAX_BYTES)",
                 pack_slot)
     anchors[slot_row[0]] = slot_row[1]
-    anchors["device cache: switch sources and lane tables of an earlier "
-            "run"] = esrc_kept + lanes_kept if one_device else 0
-    wm_row = ("device cache: walk_mat and prefix hashes kept past the "
-              "anchors",
+    anchors["held by the graph: switch sources and lane tables"] = \
+        3 * 8 * n_esrc + 8 * H * P + 8 * H if one_device else 0
+    wm_row = ("held by the graph: walk_mat and prefix hashes (walk_mat <= "
+              "WALK_HASHES_MAX_BYTES)",
               8 * H * P + 2 * 8 * H * (P + 1)
-              if one_device and lanes_kept and not hit_path else 0)
+              if one_device and not hit_path
+              and 4 * H * P <= WALK_HASHES_MAX_BYTES else 0)
     if stream_w is None:
         held = occ_cols[1] + 3 * 8 * n_esrc + 8 * Hd * Pd + 8 * Hd \
             + slot_row[1] + wm_row[1]
@@ -236,8 +232,8 @@ def budget_of_run(result, k: int, w: int, capacity: int | None = None
     """budget() at the shapes of one run of run_pipeline (a
     PipelineResult) on the device anchors or the hit path: its graph,
     spectrum, hits, retained occurrences, chunk, the solver's layers and
-    the packed-batch slot's bytes (the device anchors' from the run, the
-    hit path's as the slot holds them now)."""
+    the bytes of the packed batches the graph keeps (the device anchors'
+    from the run, the hit path's as the graph holds them now)."""
     from phi_tpu_torch.solve.prep import (_bucket_layers, solver_layers,
                                           switch_sources_cached)
     g, a = result.graph, result.anchors
@@ -246,8 +242,8 @@ def budget_of_run(result, k: int, w: int, capacity: int | None = None
         n_occ, n_hits, pack = occ.n_occ, occ.n_hits, occ.pack_bytes
         max_span = occ.max_span
     else:
-        from phi_tpu_torch.anchors.device import pack_cache_bytes
-        n_occ, pack = len(a.occ_hap), pack_cache_bytes()
+        from phi_tpu_torch.sketch.kernels import batches_bytes
+        n_occ, pack = len(a.occ_hap), batches_bytes(g.memo)
         n_hits = sum(len(h[1]) for h in result.hits)
         max_span = int((a.occ_end - a.occ_start).max()) if n_occ else 0
     L = solver_layers(g, k)

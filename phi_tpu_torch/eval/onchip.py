@@ -14,12 +14,12 @@ x 100 Mbp, 2x reads:
 `hbm_peak_gb` is torch.cuda.max_memory_allocated() over the runs (source
 "measured") on the card; on the CPU, which has no device memory to
 measure, it is the memory model's total (eval.hbm_budget, source
-"analytic"). Before each warm run the cross-run caches (the held panel,
-the solver's and anchors' device copies, the packed-batch slot) are
-dropped, as the JAX runner drops its own, so the warm runs load and upload
-what the cold one did and stay inside the card at chromosome scale;
-`caches` records each run's cache hits and uploads and the bytes the
-caches hold after it.
+"analytic"). Before each warm run the cross-run caches (the held panel
+and what its memo keeps: the packed batches, the solver's and anchors'
+device copies) are dropped, as the JAX runner drops its own, so the
+warm runs load and upload what the cold one did and stay inside the
+card at chromosome scale; `caches` records each run's cache hits and
+stores and the bytes the held batches take after it.
 """
 
 from __future__ import annotations
@@ -51,22 +51,18 @@ def _calm_summary(warm_times):
 
 
 def cache_counts() -> dict:
-    """The cross-run caches' counters since the process started (the
-    packed-batch slot's by route: `pack_slot` for the device anchors,
-    `hits_slot` for the hit path), the inferences by anchors route
-    (`anchor_route`), and the device bytes the caches hold now."""
+    """The cross-run caches' counters since the process started: the held
+    panel's, its packed batches' by route (`pack_slot` for the device
+    anchors, `hits_slot` for the hit path) and the device bytes they hold
+    now, and the inferences by anchors route (`anchor_route`)."""
     from phi_tpu_torch.anchors import device as danchors
     from phi_tpu_torch.graph import pangenome
-    from phi_tpu_torch.solve import dp, prep
+    from phi_tpu_torch.sketch import kernels
     return {"panel": dict(pangenome.PANEL_CACHE_STATS),
             "pack_slot": dict(danchors.PACK_CACHE_STATS),
             "pack_slot_bytes": danchors.pack_cache_bytes(),
-            "hits_slot": dict(danchors.HITS_SLOT_STATS),
-            "anchor_route": dict(danchors.ANCHOR_ROUTE_STATS),
-            "dev_cache": dict(dp.DEV_CACHE_STATS),
-            "dev_cache_keys": len(dp._DEV_CACHE),
-            "dev_cache_bytes": dp.dev_cache_bytes(),
-            "esrc_slot": dict(prep.ESRC_CACHE_STATS)}
+            "hits_slot": dict(kernels.HITS_SLOT_STATS),
+            "anchor_route": dict(danchors.ANCHOR_ROUTE_STATS)}
 
 
 def cache_delta(before: dict, after: dict) -> dict:
@@ -77,14 +73,10 @@ def cache_delta(before: dict, after: dict) -> dict:
 
 
 def clear_caches() -> None:
-    """Drop the cross-run caches: the held panel (the host graph), the
-    solver's and anchors' device copies and the packed-batch slot."""
-    from phi_tpu_torch.anchors import device as danchors
+    """Drop the cross-run caches: the held panel (the host graph), which
+    releases everything derived from it, its device tensors among them."""
     from phi_tpu_torch.graph import pangenome
-    from phi_tpu_torch.solve import dp
     pangenome.clear_panel()
-    dp.clear_dev_cache()
-    danchors.clear_pack_cache()
 
 
 def run(n_haps: int, length: int, coverage: float, seed: int,

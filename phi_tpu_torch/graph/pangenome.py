@@ -7,8 +7,15 @@ pure-Python fallback for them (the pipeline needs the library anyway).
 
 The held panel: one slot keeps the graph that the latest `run_pipeline`
 loaded, keyed by its file's identity, so that later inferences against the
-unchanged file take that very graph, with the memos that hang off it, and
-neither parse nor tensorize it again.
+unchanged file take that very graph, with its memo, and neither parse nor
+tensorize it again.
+
+The memo owns every value the port derives from a graph (the switch
+sources, decode's orders, the packed join batches, the solver's device
+statics, the walk hashes): each is built once, under one lock, keyed by
+its name and the parameters it depends on, and lives exactly as long as
+the graph. The panel releases a graph it drops, so its device tensors go
+with it even where a caller still refers to the graph.
 """
 
 from __future__ import annotations
@@ -43,6 +50,27 @@ def build_csr(keys: np.ndarray, values: np.ndarray, n_keys: int) -> Csr:
     return Csr(off, values[order])
 
 
+# Size limits of the memo's device entries: the packed join batches of
+# either anchor route (the estimate of their bytes), and walk_mat with its
+# prefix hashes (walk_mat's bytes). Above them a join builds its own, for
+# itself.
+BATCHES_MAX_BYTES = 768 << 20
+WALK_HASHES_MAX_BYTES = 256 << 20
+
+_memo_lock = threading.RLock()
+
+
+def memoized(memo: dict | None, key: tuple, build):
+    """memo[key], built by build() at the first lookup, under one lock;
+    build() itself where memo is None (nothing is kept)."""
+    if memo is None:
+        return build()
+    with _memo_lock:
+        if key not in memo:
+            memo[key] = build()
+        return memo[key]
+
+
 def ragged_arange(counts: np.ndarray, dtype=np.int64) -> np.ndarray:
     """[0..c0), [0..c1), ... concatenated."""
     total = int(counts.sum())
@@ -71,6 +99,15 @@ class PangenomeGraph:
     walk_node_cumlen: list[np.ndarray]  # per walk: int64 [len+1] base offsets
     lanes_of_vertex: Csr        # vertex -> flat lane-state ids (h * P + p)
     lin_ref: bool               # no edges -> linear reference (ILP_index.cpp:57-60)
+    # what the port derives from this graph, keyed by (name, parameters...)
+    # (memoized); release() drops it
+    memo: dict = dataclasses.field(default_factory=dict, repr=False,
+                                   compare=False)
+
+    def release(self) -> None:
+        """Drop every derived value, and with them their device tensors."""
+        with _memo_lock:
+            self.memo.clear()
 
     @property
     def P(self) -> int:
@@ -90,6 +127,24 @@ class PangenomeGraph:
         g = self.gfa
         parts = [g.seq_code[g.node_off[v]:g.node_off[v + 1]] for v in vertices]
         return decode_seq(np.concatenate(parts)) if parts else ""
+
+
+def max_kmer_span(graph: PangenomeGraph, k: int) -> int:
+    """Upper bound on occ_end - occ_start for any k-mer anchor (the worst
+    case starts at the last base of a node)."""
+    def build():
+        m = 1
+        for h in range(graph.num_walks):
+            cl = graph.walk_node_cumlen[h]
+            n = len(cl) - 1
+            if n <= 0:
+                continue
+            last_base = cl[1:] - 1
+            e_idx = np.searchsorted(cl, last_base + k - 1, side="right") - 1
+            e_idx = np.minimum(e_idx, n - 1)
+            m = max(m, int((e_idx - np.arange(n)).max()))
+        return m
+    return memoized(graph.memo, ("max_kmer_span", k), build)
 
 
 def tensorize(gfa: GfaData) -> PangenomeGraph:
@@ -171,6 +226,12 @@ def hold_panel(key: tuple | None, graph: PangenomeGraph) -> None:
         PANEL_CACHE_STATS["loads"] += 1
 
 
+def held_graph() -> PangenomeGraph | None:
+    """The graph the panel holds, if any."""
+    slot = _PANEL.get("slot")
+    return None if slot is None else slot[1]
+
+
 def clear_panel() -> None:
     """Drop the held graph."""
     with _panel_lock:
@@ -178,5 +239,7 @@ def clear_panel() -> None:
 
 
 def _drop_panel() -> None:
-    if _PANEL.pop("slot", None) is not None:
+    slot = _PANEL.pop("slot", None)
+    if slot is not None:
+        slot[1].release()
         PANEL_CACHE_STATS["drops"] += 1

@@ -55,7 +55,6 @@ import torch
 from phi_tpu_torch import logging as plog
 from phi_tpu_torch import native
 from phi_tpu_torch.anchors.device import (ANCHOR_ROUTE_STATS,
-                                          HITS_SLOT_STATS, graph_fingerprint,
                                           join_anchors_device)
 from phi_tpu_torch.anchors.join import (AnchorTables, anchor_tables_from_hits,
                                         sketch_haplotypes)
@@ -69,7 +68,8 @@ from phi_tpu_torch.io.gfa import read_gfa
 from phi_tpu_torch.io.reads import load_read_batch
 from phi_tpu_torch.parallel.sharded import Mesh, make_mesh, solve_dp_sharded
 from phi_tpu_torch.sketch.encode import combine64
-from phi_tpu_torch.sketch.kernels import HALO_PAD, NARROW_MAX_K, join_many
+from phi_tpu_torch.sketch.kernels import (HALO_PAD, HITS_SLOT_STATS,
+                                          NARROW_MAX_K, join_many)
 from phi_tpu_torch.sketch.minimizer import (NO_NATIVE, host_join_many,
                                             native_spectrum,
                                             sketch_join_walks,
@@ -319,6 +319,8 @@ def _run(gfa_path: str, reads_path: str | None, out_path: str | None,
                 write_fasta(out_path, name, seq)
             plog.log("ILP_function",
                      f"Haplotype of size: {len(seq)} written to: {out_path}")
+    if key is None:
+        graph.release()   # a graph the panel does not hold keeps nothing
     return PipelineResult(
         sequence=seq, decode=result, anchors=anchors,
         recombination_count=recomb, report_segments=segs,
@@ -391,23 +393,19 @@ def _join_hits(graph, hap_codes, opt: Options, spectrum, device,
     each walk it hands back (walks holding N); for k > 31 or k + w - 2
     beyond the halo, the native host join of every walk (the reference's
     choice, pipeline.py:217-232 of the JAX package). On one device
-    join_many is given the graph's content fingerprint, so it may serve
-    the walks' packed batches from the packed-batch slot; a mesh, or a
-    graph too large to fingerprint, packs every join (a miss of
-    HITS_SLOT_STATS). One span, `hits`, so its parts (fingerprint and
-    join_many's plan, cuckoo and join) key apart from the device anchors'
-    spans of the same names."""
+    join_many is given the graph's memo, so it may serve the walks'
+    packed batches from there; a mesh packs every join (a miss of
+    HITS_SLOT_STATS). One span, `hits`, so join_many's parts (plan,
+    cuckoo and join) key apart from the device anchors' spans of the
+    same names."""
     with span("hits"):
         if opt.k > NARROW_MAX_K or opt.k + opt.w - 2 > HALO_PAD:
             return sketch_join_walks(graph, opt.k, opt.w, *spectrum)
-        panel = None
-        if devices is None:
-            with span("fingerprint"):
-                panel = graph_fingerprint(graph)
-        if panel is None:
+        if devices is not None:
             HITS_SLOT_STATS["misses"] += 1
         hits = join_many(hap_codes, opt.k, opt.w, *spectrum, device=device,
-                         devices=devices, panel=panel)
+                         devices=devices,
+                         memo=graph.memo if devices is None else None)
         left = [h for h, out in enumerate(hits) if out is None]
         for h, out in zip(left, host_join_many(hap_codes, left, opt.k,
                                                opt.w, *spectrum)):

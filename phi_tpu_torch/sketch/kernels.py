@@ -920,10 +920,38 @@ def pack_join_batch(seqs, batch, row_lanes: int, device):
 # batch rerun) once WINDOW later batches are queued behind it
 WINDOW = 3
 
+# A graph's packed join batches, kept in its memo (graph.pangenome) under
+# BATCHES as (params, batches, row plan or None): their device tensors are
+# a pure function of the graph's walks and params (k, w, rows,
+# super-blocks, route, S_cap, device), so a later join on the held graph
+# with the same params neither plans, packs nor uploads. One entry a
+# graph, shared by the two anchor routes: a join with other params drops
+# it before it packs, and keeps its own where their bytes are at most
+# pangenome.BATCHES_MAX_BYTES.
+BATCHES = ("batches",)
+# hit-path joins since the process started: served from the graph's
+# batches, packed and kept, or packed and not kept (over the limit, or a
+# mesh)
+HITS_SLOT_STATS = {"hits": 0, "stores": 0, "misses": 0}
+
+
+def held_batches(memo: dict, params: tuple):
+    """(batches, plan) of the memo's entry where it was packed with
+    `params`, else None."""
+    entry = memo.get(BATCHES)
+    return entry[1:] if entry is not None and entry[0] == params else None
+
+
+def batches_bytes(memo: dict) -> int:
+    """Device bytes of the packed batches a graph's memo keeps."""
+    entry = memo.get(BATCHES)
+    return 0 if entry is None else sum(t.nbytes for tens in entry[1]
+                                       for t in tens)
+
 
 def join_many(seqs: list[np.ndarray], k: int, w: int, sp_hi, sp_lo, *,
               device, devices=None, rows_per_call: int | None = None,
-              super_blocks: int | None = None, panel: tuple | None = None):
+              super_blocks: int | None = None, memo: dict | None = None):
     """Sketch + join of many sequences against the read spectrum (the port
     of pallas_join_many): per sequence, (n_minimizers, hit positions int32,
     hit spectrum ids int32), hits in position order. A sequence holding N
@@ -945,16 +973,15 @@ def join_many(seqs: list[np.ndarray], k: int, w: int, sp_hi, sp_lo, *,
     rerun touches no other batch. Spans (trace.py): plan, cuckoo and join
     (its batches' pack_wait, dispatch and harvest).
 
-    `panel` is the content fingerprint of the graph whose walks the
-    sequences are (anchors.device.graph_fingerprint). With it, a join on
-    one device keys the packed-batch slot by it, (k, w), the geometry,
-    the route "hits" and the device: on a hit the row plan and the
-    uploaded batches come from the slot, so plan and pack_wait read ~0
-    and nothing is packed or uploaded; on a miss the join drops the slot,
-    packs and uploads as without it, and keeps its plan and batches there
-    when their bytes fit PHI_TPU_PACK_CACHE_MB. The sample's part (the
+    `memo` is the memo of the graph whose walks the sequences are. With
+    it, a join on one device keeps its row plan and uploaded batches there
+    (BATCHES) under (k, w), the geometry, the route "hits" and the device:
+    on a hit they come from the memo, so plan and pack_wait read ~0 and
+    nothing is packed or uploaded; on a miss the join drops the entry,
+    packs and uploads as without it, and keeps its plan and batches where
+    their bytes fit pangenome.BATCHES_MAX_BYTES. The sample's part (the
     spectrum table, every batch's join, reruns, the harvest) runs either
-    way. anchors.device.HITS_SLOT_STATS counts each keyed join.
+    way. HITS_SLOT_STATS counts each join given a memo.
 
     With `devices` (a mesh's devices, which may repeat), the sequences are
     round-robined over them, sequence j on devices[j % len(devices)], each
@@ -978,26 +1005,35 @@ def join_many(seqs: list[np.ndarray], k: int, w: int, sp_hi, sp_lo, *,
     from concurrent.futures import ThreadPoolExecutor
 
     from phi_tpu_torch import state
+    from phi_tpu_torch.graph import pangenome
     from phi_tpu_torch.ops.search import mixed_tensors
     from phi_tpu_torch.trace import span
-    from phi_tpu_torch.anchors import device as danchors
     device = torch.device(device)
     super_blocks = super_blocks or SUPER_BLOCKS
     row_lanes = (super_blocks + 1) * BLK
     R = rows_per_call or ROWS
-    key = None if panel is None else \
-        tuple(panel) + (k, w, R, super_blocks, "hits", str(device))
+    params = (k, w, R, super_blocks, "hits", None, str(device))
     with span("plan"):
-        held = None if key is None else danchors.held_hits(key)
+        held = None if memo is None else held_batches(memo, params)
         plan = held[1] if held is not None else \
             plan_join_rows(seqs, k, w, super_blocks)
     results, rows = list(plan[0]), plan[1]
     if not rows:
         return results
     n_batches = -(-len(rows) // R)
-    # the list this join's batches go into when the slot is to keep them
-    keep = danchors.hits_slot_miss(n_batches * R * (row_lanes // 4 + 8)) \
-        if key is not None and held is None else None
+    # the list this join's batches go into when the memo is to keep them
+    keep = None
+    if memo is not None:
+        fits = n_batches * R * (row_lanes // 4 + 8) \
+            <= pangenome.BATCHES_MAX_BYTES
+        if held is not None and fits:
+            HITS_SLOT_STATS["hits"] += 1
+        else:
+            held = None
+            memo.pop(BATCHES, None)
+            keep = [] if fits else None
+            if not fits:
+                HITS_SLOT_STATS["misses"] += 1
     with span("cuckoo"):
         table = mixed_tensors(sp_hi, sp_lo, device)
     caps = (emit_cap(w, super_blocks), hit_cap(w, super_blocks, R))
@@ -1056,7 +1092,8 @@ def join_many(seqs: list[np.ndarray], k: int, w: int, sp_hi, sp_lo, *,
             if packer is not None:
                 packer.shutdown(wait=False, cancel_futures=True)
         if keep is not None:
-            danchors.hold_hits(key, keep, plan)
+            memo[BATCHES] = (params, keep, plan)
+            HITS_SLOT_STATS["stores"] += 1
         acc: dict[int, tuple[int, list, list]] = {}
         with span("harvest"):
             for b in range(n_batches):

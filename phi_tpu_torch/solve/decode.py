@@ -14,7 +14,7 @@ import dataclasses
 
 import numpy as np
 
-from phi_tpu_torch.graph.pangenome import PangenomeGraph
+from phi_tpu_torch.graph.pangenome import PangenomeGraph, memoized
 from phi_tpu_torch.anchors.join import AnchorTables
 from phi_tpu_torch.solve.prep import SolverTables
 from phi_tpu_torch.trace import spanned
@@ -47,23 +47,9 @@ def decode_path(graph: PangenomeGraph, t: SolverTables, anchors: AnchorTables,
     walk_len = t.walk_len
     INF = np.float32(np.inf)
     ent = M.ent
-    if len(t.esrc_h):
-        # esrc_target is graph-static: cache its sort across decode calls
-        tcache = getattr(graph, "_esrc_torder", None)
-        if tcache is None or tcache[0] is not t.esrc_target:
-            order = np.argsort(t.esrc_target, kind="stable")
-            tcache = (t.esrc_target, order)
-            graph._esrc_torder = tcache
-        order = tcache[1]
-        tgt_sorted = t.esrc_target[order]
-    else:
-        order = np.zeros(0, np.int64)
-        tgt_sorted = np.zeros(0, np.int32)
-    # the switch sources of vertex v are order[tgt_off[v]:tgt_off[v + 1]];
-    # found once for every vertex, as a search with a Python int needle
-    # converts the whole int32 array on each call
-    tgt_off = np.searchsorted(tgt_sorted,
-                              np.arange(graph.n_vtx + 1, dtype=np.int32))
+    # the switch sources of vertex v are order[tgt_off[v]:tgt_off[v + 1]]
+    order, tgt_off = memoized(t.graph_memo, ("esrc_torder",),
+                              lambda: _target_order(t, graph.n_vtx))
 
     # lane arrays (A, running minimum, rightmost argmin, start entry) are
     # built lazily: the backtrace touches n_switches + 1 lanes
@@ -91,14 +77,9 @@ def decode_path(graph: PangenomeGraph, t: SolverTables, anchors: AnchorTables,
     if L > 0:
         # lazy straddle queries: occurrences per lane sorted by start (the
         # sort depends only on the layout, shared across refinement rounds)
-        ocache = getattr(graph, "_occ_sorder", None)
-        if (ocache is None or ocache[0] is not t.occ_hap
-                or ocache[1] is not t.occ_start):
-            o_order = np.argsort(t.occ_hap.astype(np.int64) * (P + 1)
-                                 + t.occ_start, kind="stable")
-            ocache = (t.occ_hap, t.occ_start, o_order)
-            graph._occ_sorder = ocache
-        o_order = ocache[2]
+        o_order = memoized(t.sample_memo, ("occ_sorder",), lambda: np.argsort(
+            t.occ_hap.astype(np.int64) * (P + 1) + t.occ_start,
+            kind="stable"))
         o_hap = t.occ_hap[o_order]
         o_start = t.occ_start[o_order].astype(np.int64)
         o_end = t.occ_end[o_order].astype(np.int64)
@@ -170,6 +151,16 @@ def decode_path(graph: PangenomeGraph, t: SolverTables, anchors: AnchorTables,
     return res
 
 
+def _target_order(t: SolverTables, n_vtx: int):
+    """(order, tgt_off): the switch-source rows sorted by target vertex, and
+    each vertex's offset into them, found once for every vertex, as a
+    search with a Python int needle converts the whole int32 array on
+    each call."""
+    order = np.argsort(t.esrc_target, kind="stable")
+    return order, np.searchsorted(t.esrc_target[order],
+                                  np.arange(n_vtx + 1, dtype=np.int32))
+
+
 def result_from_segments(graph: PangenomeGraph, t: SolverTables,
                          anchors: AnchorTables,
                          segments: list[tuple[int, int, int]],
@@ -183,7 +174,7 @@ def result_from_segments(graph: PangenomeGraph, t: SolverTables,
         hparts.append(np.full(sp - sq + 1, sh, dtype=np.int32))
     vertices = np.concatenate(vparts).astype(np.int32)
     vertex_hap = np.concatenate(hparts)
-    _verify_edges(graph, vertices)
+    _verify_edges(graph, vertices, t.graph_memo)
     n_switches = len(segments) - 1
     matched_distinct, matched_total = _score_matches(anchors, segments)
     true_obj = t.R * n_switches + (anchors.n_model_kmers - matched_distinct)
@@ -197,16 +188,14 @@ def result_from_segments(graph: PangenomeGraph, t: SolverTables,
     )
 
 
-def _verify_edges(graph: PangenomeGraph, vertices: np.ndarray) -> None:
+def _verify_edges(graph: PangenomeGraph, vertices: np.ndarray,
+                  memo: dict | None) -> None:
     """Every consecutive pair must be a graph edge (the reference exits on
-    a violation)."""
+    a violation). The sorted edges are kept in the graph's memo."""
     if len(vertices) < 2:
         return
-    packed_edges = getattr(graph, "_packed_edges_sorted", None)
-    if packed_edges is None:  # graph-static: sort once across decode calls
-        packed_edges = np.sort(graph.edge_u.astype(np.int64) << 32
-                               | graph.edge_v.astype(np.int64))
-        graph._packed_edges_sorted = packed_edges
+    packed_edges = memoized(memo, ("packed_edges",), lambda: np.sort(
+        graph.edge_u.astype(np.int64) << 32 | graph.edge_v.astype(np.int64)))
     pairs = vertices[:-1].astype(np.int64) << 32 | vertices[1:].astype(np.int64)
     idx = np.searchsorted(packed_edges, pairs)
     idx_c = np.minimum(idx, len(packed_edges) - 1)

@@ -25,122 +25,24 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import zlib
 
 import numpy as np
 import torch
 
 from phi_tpu_torch import state
+from phi_tpu_torch.graph.pangenome import memoized
 from phi_tpu_torch.solve.prep import SolverTables
 from phi_tpu_torch.trace import span
 
 _INF = float("inf")
 
-# Device copies of graph-static uploads: the solver's switch sources and
-# lane tables, the host route's occurrence index columns, the anchors'
-# walk_mat and prefix hashes. The rounds of the certification ladder
-# rebuild SolverTables around the same numpy arrays, so a key of the
-# source array's id hits within a run (the entry holds the array, so its
-# id is not reused while cached). A re-run on the same input rebuilds
-# every array; a second key of their content (crc32 and adler32 of the
-# bytes) hits then, for arrays of at most PHI_TPU_DEV_CACHE_MB (256) MiB
-# each. Every key carries the device. At most _DEV_CACHE_CAP keys, the
-# oldest dropped first; a content hit puts its key in again.
-_DEV_CACHE: dict = {}
-_DEV_CACHE_CAP = 12
-# id hits, content hits and builds (uploads) since the process started
-DEV_CACHE_STATS = {"id_hits": 0, "content_hits": 0, "builds": 0}
-
-
-def content_keyed(src_arr) -> bool:
-    """Whether an array is at most PHI_TPU_DEV_CACHE_MB MiB, so that a
-    re-run finds its device copy by content."""
-    return src_arr.nbytes <= int(os.environ.get("PHI_TPU_DEV_CACHE_MB",
-                                                "256")) << 20
-
-
-def _content_key(src_arr):
-    """(shape, dtype, crc32, adler32) of an array, or None above the gate."""
-    if not content_keyed(src_arr):
-        return None
-    b = np.ascontiguousarray(src_arr)
-    return ("content", src_arr.shape, str(src_arr.dtype), zlib.crc32(b),
-            zlib.adler32(b))
-
-
-def _dev_cached(src_arr, shape_key: tuple, device, build,
-                content_arrs=None):
-    """The value build() uploads from src_arr to `device`, cached.
-    content_arrs: the arrays whose content determines the value (default
-    (src_arr,)); every array it derives from must be among them."""
-    dkey = shape_key + (str(torch.device(device)),)
-    key = (id(src_arr),) + dkey
-    hit = _DEV_CACHE.get(key)
-    if hit is not None:
-        DEV_CACHE_STATS["id_hits"] += 1
-        return hit[1]
-    parts = []
-    for a in (content_arrs if content_arrs is not None else (src_arr,)):
-        ck = _content_key(a)
-        if ck is None:
-            parts = None
-            break
-        parts.append(ck)
-    ckey = None if parts is None else tuple(parts) + dkey
-    if ckey is not None:
-        hit = _DEV_CACHE.get(ckey)
-        if hit is not None:
-            DEV_CACHE_STATS["content_hits"] += 1
-            # an id hit next time; the content key goes in again behind
-            # it, so a re-run's new id keys drop the old runs' first
-            _DEV_CACHE.pop(ckey)
-            _dev_cache_put(key, (src_arr, hit[1]))
-            _dev_cache_put(ckey, hit)
-            return hit[1]
-    val = build()
-    DEV_CACHE_STATS["builds"] += 1
-    _dev_cache_put(key, (src_arr, val))
-    if ckey is not None:
-        _dev_cache_put(ckey, (src_arr, val))
-    return val
-
-
-def _dev_cache_put(key, entry) -> None:
-    """Insert a key, dropping the oldest while the cache is full."""
-    while len(_DEV_CACHE) >= _DEV_CACHE_CAP:
-        _DEV_CACHE.pop(next(iter(_DEV_CACHE)))
-    _DEV_CACHE[key] = entry
-
-
-def clear_dev_cache() -> None:
-    """Drop every cached device copy."""
-    _DEV_CACHE.clear()
-
-
-def dev_cache_bytes() -> int:
-    """Device bytes the cache holds (a value under two keys counted once)."""
-    seen, n = set(), 0
-    for _, val in _DEV_CACHE.values():
-        for t in val:
-            st = t.untyped_storage()
-            if st.data_ptr() not in seen:
-                seen.add(st.data_ptr())
-                n += st.nbytes()
-    return n
-
 
 def solver_static(t, device):
-    """state.solver_static through the cache: the switch sources keyed by
-    esrc_h, the lane tables by state_vertex, as the reference keys them;
-    one upload of each per ladder, none on a re-run below the gate."""
-    eh, ep, et = _dev_cached(
-        t.esrc_h, ("esrc",), device, lambda: state.esrc_tensors(t, device),
-        content_arrs=(t.esrc_h, t.esrc_p, t.esrc_target))
-    sv, wl = _dev_cached(
-        t.state_vertex, ("sv",), device,
-        lambda: state.lane_tensors(t, device),
-        content_arrs=(t.state_vertex, t.walk_len))
-    return eh, ep, et, sv, wl
+    """state.solver_static, kept per device in the graph's memo: one upload
+    of the switch sources and lane tables per graph, which every round
+    and every item on the held panel reads."""
+    return memoized(t.graph_memo, ("solver_static", str(torch.device(device))),
+                    lambda: state.solver_static(t, device))
 
 
 class StreamedW:
@@ -371,13 +273,13 @@ def solve_dp(t: SolverTables, max_sweeps: int, device):
             if t.occ_weight is not None:
                 ow = state.occ_weights(t.occ_weight, device)
         else:
-            # the index columns once per ladder, each round's weights fresh
-            oh, os_, osp = _dev_cached(
-                t.occ_hap, ("occ",), device,
+            # the index columns once per ladder (kept with the sample),
+            # each round's weights fresh
+            oh, os_, osp = memoized(
+                t.sample_memo, ("occ_index", str(device)),
                 lambda: state.occ_index_tensors(
                     t.occ_hap, t.occ_start, t.occ_end - t.occ_start,
-                    device),
-                content_arrs=(t.occ_hap, t.occ_start, t.occ_end))
+                    device))
             ow = state.occ_weights(t.occ_weight, device)
         L = t.n_layers
         streamed = stream_w(H, P, L, int(ow.shape[0]), device)

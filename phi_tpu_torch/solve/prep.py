@@ -14,13 +14,11 @@ the solver runs the reference's bracket solve (solve.dp.solve_dp_both).
 from __future__ import annotations
 
 import dataclasses
-import os
-import threading
-import zlib
 
 import numpy as np
 
-from phi_tpu_torch.graph.pangenome import PangenomeGraph, ragged_arange
+from phi_tpu_torch.graph.pangenome import (PangenomeGraph, max_kmer_span,
+                                          memoized, ragged_arange)
 from phi_tpu_torch.anchors.join import (AnchorTables, credit_arrays,
                                         credit_arrays_from_occ)
 from phi_tpu_torch.trace import spanned
@@ -55,6 +53,16 @@ class SolverTables:
     # device occurrence columns (anchors.device.DeviceOcc): the solver
     # builds S/B/W from these, uploading only fresh weights
     occ_dev: object | None = None
+    # the memos the solver keeps what it derives in: the graph's (the
+    # device statics) and the sample's (AnchorTables.memo: the hit path's
+    # occurrence index columns); None builds them at each use
+    graph_memo: dict | None = dataclasses.field(default=None, repr=False,
+                                                compare=False)
+    sample_memo: dict | None = dataclasses.field(default=None, repr=False,
+                                                 compare=False)
+    # S_row's rows by lane (these tables' weights: not carried by replace)
+    s_rows: dict = dataclasses.field(default_factory=dict, init=False,
+                                     repr=False, compare=False)
 
     @property
     def H(self) -> int:
@@ -77,11 +85,7 @@ class SolverTables:
         """One lane's dense S row (entry charge, starts < p)."""
         if self.S is not None:
             return self.S[h]
-        cache = getattr(self, "_s_rows", None)
-        if cache is None:
-            cache = {}
-            self._s_rows = cache
-        row = cache.get(h)
+        row = self.s_rows.get(h)
         if row is None:
             P = self.P
             m = self.occ_hap == h
@@ -90,7 +94,7 @@ class SolverTables:
             diff = np.bincount(start_next[keep],
                                weights=self.occ_weight[m][keep], minlength=P)
             row = np.cumsum(diff[:P], dtype=np.float64).astype(np.float32)
-            cache[h] = row
+            self.s_rows[h] = row
         return row
 
 
@@ -126,50 +130,11 @@ def switch_sources(graph: PangenomeGraph):
             active[rep[diverge]].astype(np.int32))
 
 
-_esrc_lock = threading.Lock()
-# one slot (fingerprint, switch_sources rows): the rows of the latest graph
-_esrc_content_cache: tuple | None = None
-# slot hits and expansions since the process started
-ESRC_CACHE_STATS = {"hits": 0, "builds": 0}
-
-
-def _esrc_fingerprint(graph: PangenomeGraph):
-    """Content fingerprint of everything switch_sources reads (walk_mat,
-    walk_len and the edges; lanes_of_vertex derives from walk_mat), or
-    None when walk_mat passes PHI_TPU_ESRC_CACHE_MB (512) MiB."""
-    gate_mb = int(os.environ.get("PHI_TPU_ESRC_CACHE_MB", "512"))
-    wm = graph.walk_mat
-    if wm.nbytes > gate_mb << 20:
-        return None
-    parts = []
-    for a in (wm, graph.walk_len, graph.edge_u, graph.edge_v):
-        b = np.ascontiguousarray(a)
-        parts += [zlib.crc32(b), zlib.adler32(b)]
-    return (graph.n_vtx,) + wm.shape + tuple(parts)
-
-
 def switch_sources_cached(graph: PangenomeGraph):
-    """switch_sources, cached on the graph (it depends only on the graph;
-    Lagrangian rounds and B&B nodes reuse it), and in a content-keyed slot
-    that a re-run on the same input hits with its freshly loaded graph."""
-    global _esrc_content_cache
-    cached = getattr(graph, "_esrc_cache", None)
-    if cached is None:
-        with _esrc_lock:
-            cached = getattr(graph, "_esrc_cache", None)
-            if cached is None:
-                fp = _esrc_fingerprint(graph)
-                slot = _esrc_content_cache
-                if fp is not None and slot is not None and slot[0] == fp:
-                    cached = slot[1]
-                    ESRC_CACHE_STATS["hits"] += 1
-                else:
-                    cached = switch_sources(graph)
-                    ESRC_CACHE_STATS["builds"] += 1
-                    if fp is not None:
-                        _esrc_content_cache = (fp, cached)
-                graph._esrc_cache = cached
-    return cached
+    """switch_sources, kept in the graph's memo (it depends only on the
+    graph; every round, B&B node and item on the held panel reuses it)."""
+    return memoized(graph.memo, ("switch_sources",),
+                    lambda: switch_sources(graph))
 
 
 def _bucket_layers(n: int) -> int:
@@ -187,29 +152,6 @@ def _bucket_layers(n: int) -> int:
 # stack would be L * H * P floats); spans this long only arise from chains
 # of zero-length nodes.
 MAX_LAYERS = 64
-
-
-def max_kmer_span(graph: PangenomeGraph, k: int) -> int:
-    """Upper bound on occ_end - occ_start for any k-mer anchor (the worst
-    case starts at the last base of a node)."""
-    cache = getattr(graph, "_span_cache", None)
-    if cache is None:
-        cache = {}
-        graph._span_cache = cache
-    if k in cache:
-        return cache[k]
-    m = 1
-    for h in range(graph.num_walks):
-        cl = graph.walk_node_cumlen[h]
-        n = len(cl) - 1
-        if n <= 0:
-            continue
-        last_base = cl[1:] - 1
-        e_idx = np.searchsorted(cl, last_base + k - 1, side="right") - 1
-        e_idx = np.minimum(e_idx, n - 1)
-        m = max(m, int((e_idx - np.arange(n)).max()))
-    cache[k] = m
-    return m
 
 
 def solver_layers(graph: PangenomeGraph, k: int) -> int:
@@ -240,14 +182,11 @@ def build_solver_tables(graph: PangenomeGraph, anchors: AnchorTables,
         if const_override is not None:
             const = float(const_override)
         elif len(anchors.occ_kmer):
-            # first-occurrence index of each k-mer, cached on the graph:
-            # refinement rounds share occ_kmer by identity
-            cache = getattr(graph, "_first_occ", None)
-            if cache is None or cache[0] is not anchors.occ_kmer:
-                _, first = np.unique(anchors.occ_kmer, return_index=True)
-                cache = (anchors.occ_kmer, first)
-                graph._first_occ = cache
-            const = float(anchors.occ_weight[cache[1]].sum())
+            # first-occurrence index of each k-mer, kept with the sample:
+            # refinement rounds share its occ_kmer
+            first = memoized(anchors.memo, ("first_occ",), lambda: np.unique(
+                anchors.occ_kmer, return_index=True)[1])
+            const = float(anchors.occ_weight[first].sum())
         else:
             const = 0.0
         if n_layers is None:
@@ -263,4 +202,5 @@ def build_solver_tables(graph: PangenomeGraph, anchors: AnchorTables,
         walk_len=graph.walk_len, R=float(R), const=const, n_vtx=graph.n_vtx,
         n_layers=n_layers, occ_hap=anchors.occ_hap,
         occ_start=anchors.occ_start, occ_end=anchors.occ_end,
-        occ_weight=anchors.occ_weight, occ_dev=dev)
+        occ_weight=anchors.occ_weight, occ_dev=dev, graph_memo=graph.memo,
+        sample_memo=anchors.memo)

@@ -42,9 +42,7 @@ def test_record_matches_jax(caches):
         assert run["pack_slot"]["hits"] == 0
         assert run["pack_slot"]["stores"] == 1
         assert run["pack_slot_bytes"] > 0
-        assert run["dev_cache"]["content_hits"] == 0
-        assert run["dev_cache"]["builds"] >= 3
-    assert got["caches"][1]["esrc_slot"] == {"hits": 1, "builds": 0}
+        assert run["panel"]["loads"] == 1
     for key in set(want) - TIME_KEYS - DEVICE_KEYS:
         assert got[key] == want[key], key
     for key in ("warm", "warm_calm"):

@@ -15,6 +15,9 @@ allocates, on the CPU at a small size:
   equals the peak of new tensors alive in solve_exact beside M;
 - where the JAX package's model has the same term (S/B/M, the W stack, the
   mesh tile), the two agree;
+- the graph's memo rows: the solver statics at any size, walk_mat and its
+  hashes only at most WALK_HASHES_MAX_BYTES, and none of them on the hit
+  path's solve;
 - solve.dp.stream_w flips where the model's materialized solve passes the
   free device memory (the card's memory queries stubbed), and the
   PHI_TPU_STREAM_W_GB cap where the stack passes it.
@@ -36,6 +39,7 @@ from phi_tpu.eval import hbm_budget as jbudget  # noqa: E402
 from phi_tpu_torch import state  # noqa: E402
 from phi_tpu_torch.anchors import device as dv  # noqa: E402
 from phi_tpu_torch.eval import hbm_budget as hb  # noqa: E402
+from phi_tpu_torch.graph import pangenome  # noqa: E402
 from phi_tpu_torch.solve import dp as tdp  # noqa: E402
 from tests.test_torch_anchors import _instance, _spectrum  # noqa: E402
 from tests.test_torch_stream import _tables  # noqa: E402
@@ -92,7 +96,7 @@ def test_anchor_rows_equal_the_port_tensors(tmp_path, monkeypatch):
     (_, graph), reads = _instance(tmp_path)
     spectrum = _spectrum(reads, k, w)
     seen = {}
-    tdp.clear_dev_cache()  # a cold run: walk_mat and its hashes are built
+    graph.release()  # a cold run: walk_mat and its hashes are built
     for module, name in ((dv, "_finalize"), (dv, "build_ph"),
                          (dv, "_kmer_stats"), (state, "cuckoo_tensors")):
         _spy(monkeypatch, module, name, seen)
@@ -155,13 +159,17 @@ def test_solve_rows_equal_the_port_tensors(L):
     static = state.solver_static(tables, "cpu")
     S, B, W = tdp.build_sbw(*occ, H, P, L)
     for streamed in (False, True):
-        rows = hb.budget(H, P, L, 1000, n, 10 ** 5, windows=10 ** 6,
+        both = hb.budget(H, P, L, 1000, n, 10 ** 5, windows=10 ** 6,
                          n_vtx=V, n_esrc=len(t["eh"]), stream_w=streamed,
-                         capacity=1 << 40)["per_device_bytes"]["solve"]
+                         capacity=1 << 40)["per_device_bytes"]
+        rows = both["solve"]
         assert rows["S/B/M lane tables (3x f32 [H,P])"] == 3 * S.nbytes
         assert _nbytes(*static) == rows[
             "switch sources and state tables (int64 esrc h/p/target, "
             "state_vertex, walk_len)"]
+        # the graph's memo keeps them into the next run's anchors stage
+        assert _nbytes(*static) == both["anchors"][
+            "held by the graph: switch sources and lane tables"]
         sweep = rows["sweep working set (masks, vertex clip, D, e_state, A, "
                      "scan, Mn, Apad)"]
         Wx = tdp.StreamedW(*occ, H, P, L) if streamed else W
@@ -221,14 +229,15 @@ def test_stream_rule_flips_where_the_model_says(monkeypatch):
     assert tdp.stream_w(H, P, L, n, cuda)
     # the model's own choice at a capacity: the same flip, with what the
     # solve finds allocated (the retained columns, the statics and what
-    # the caches keep: walk_mat and its hashes, the packed-batch slot) held
+    # the graph's memo keeps: walk_mat and its hashes, the packed batches)
+    # held
     monkeypatch.delenv("PHI_TPU_STREAM_W_GB")
     kw = dict(windows=10 ** 9, n_vtx=P, n_esrc=H * P // 16,
               pack_slot=10 ** 8)
     held = hb.budget(H, P, L, 10 ** 6, n, 10 ** 8, stream_w=False,
                      capacity=1 << 40, **kw)["per_device_bytes"]["solve"]
     held = sum(v for k, v in held.items()
-               if k.startswith(("switch", "occ", "packed", "device cache")))
+               if k.startswith(("switch", "occ", "packed", "held by")))
     for cap, streams in ((held + need, False), (held + need - 1, True)):
         got = hb.budget(H, P, L, 10 ** 6, n, 10 ** 8, capacity=cap, **kw)
         assert got["stream_w"] is streams
@@ -290,10 +299,17 @@ def test_hit_path_rows_equal_the_port_tensors(tmp_path, monkeypatch):
     assert hb.hit_path_rows(n_sp, w).items() <= anchors.items()
     assert not [r for r in anchors if r.startswith(
         ("hit buffers", "walk_mat", "filter", "occurrence"))]
-    assert got["per_device_bytes"]["solve"][
-        "device cache: walk_mat and prefix hashes kept past the anchors"] == 0
+    wm_row = ("held by the graph: walk_mat and prefix hashes (walk_mat <= "
+              "WALK_HASHES_MAX_BYTES)")
+    assert got["per_device_bytes"]["solve"][wm_row] == 0
+    # the statics are held at any size, the walk hashes only below theirs
+    assert anchors["held by the graph: switch sources and lane tables"] > 0
     narrow = hb.budget(H - 1, P, 4, n_sp, 10 ** 4, 10 ** 6, windows=10 ** 7,
                        w=w, capacity=1 << 40)["per_device_bytes"]
     assert "hit buffers (3x int64 x CAP)" in narrow["anchors"]
-    assert narrow["solve"]["device cache: walk_mat and prefix hashes kept "
-                           "past the anchors"] > 0
+    assert narrow["solve"][wm_row] > 0
+    monkeypatch.setattr(pangenome, "WALK_HASHES_MAX_BYTES", 4 * (H - 1) * P
+                        - 1)
+    assert hb.budget(H - 1, P, 4, n_sp, 10 ** 4, 10 ** 6, windows=10 ** 7,
+                     w=w, capacity=1 << 40)["per_device_bytes"]["solve"][
+                         wm_row] == 0

@@ -9,8 +9,16 @@ unchanged file takes that very graph.
   a load, and gives the new graph's answer;
 - two samples back to back on the held panel each equal a run on a newly
   loaded graph, on the device anchors and on the hit path (whose anchors
-  are materialized, so the sample-keyed memos on the graph are read), and
-  a --load-index re-solve at another R takes the held panel;
+  are materialized, so the sample's memo is read), the held graph keeps
+  no array of a sample, and a --load-index re-solve at another R takes
+  the held panel;
+- loading another file, or clear_caches(), releases the dropped graph's
+  memo (its packed batches, walk hashes and solver statics) while a
+  PipelineResult still refers to that graph, and a graph the panel does
+  not hold (a pipe) keeps nothing after its run;
+- ten hit-path samples back to back on the held panel upload the switch
+  sources and lane tables once, and each sample's occurrence index
+  columns once;
 - on a hit the load_graph spans keep their keys;
 - clear_caches() drops the slot and counts a drop; cache_counts() holds
   "panel";
@@ -18,18 +26,24 @@ unchanged file takes that very graph.
   cannot be stat'ed has no key."""
 
 import os
+import threading
 
 import numpy as np
 import pytest
 
+from phi_tpu_torch import pipeline, state
 from phi_tpu_torch.config import Options
 from phi_tpu_torch.eval import onchip
 from phi_tpu_torch.eval.synth import sample_reads, synth_pangenome
 from phi_tpu_torch.graph import pangenome
 from phi_tpu_torch.io.gfa import write_gfa
 from phi_tpu_torch.pipeline import run_pipeline
+from phi_tpu_torch.sketch.kernels import BATCHES, batches_bytes
 
 K, W, R = 21, 11, 5.0
+# the memo entries that derive from the graph alone
+GRAPH_KEYS = {"max_kmer_span", "switch_sources", "esrc_torder",
+              "packed_edges", "solver_static", "walk_hashes", BATCHES[0]}
 
 
 @pytest.fixture(autouse=True)
@@ -123,10 +137,20 @@ def test_rewritten_file_loads_the_new_graph(tmp_path):
     assert want != _answer(r1, tmp_path / "a.fa")
 
 
+def _graph_keeps_no_sample(res) -> None:
+    """The graph's memo holds graph-static entries only; the sample's
+    derived arrays are in its own memo."""
+    assert {key[0] for key in res.graph.memo} <= GRAPH_KEYS
+    for key, val in res.anchors.memo.items():
+        for entry in res.graph.memo.values():
+            assert entry is not val, key
+
+
 @pytest.mark.parametrize("route", ["device", "hit_path"])
 def test_samples_back_to_back_equal_fresh_runs(tmp_path, route):
     """The hit path (--save-index) materializes the anchors, so the solve
-    reads the graph's sample-keyed memos (_first_occ, _occ_sorder)."""
+    reads the sample's memo (first_occ, occ_sorder, occ_index), and the
+    held graph keeps none of it."""
     gfa, reads_a, haps = _case(tmp_path)
     reads_b = _reads(tmp_path / "reads_b.fa", haps, 31, [(1500, 1),
                                                          (3500, 0)])
@@ -136,13 +160,114 @@ def test_samples_back_to_back_equal_fresh_runs(tmp_path, route):
     for name, reads in (("a", reads_a), ("b", reads_b), ("a2", reads_a)):
         res = _run(gfa, reads, tmp_path / f"{name}.fa", **kw)
         held.append((res.graph, _answer(res, tmp_path / f"{name}.fa")))
+        _graph_keeps_no_sample(res)
+        if route == "hit_path":
+            assert {key[0] for key in res.anchors.memo} == {
+                "first_occ", "occ_sorder", "occ_index"}
     assert held[0][0] is held[1][0] is held[2][0]
-    if route == "hit_path":
-        assert getattr(held[0][0], "_first_occ", None) is not None
     assert held[0][1] != held[1][1]
     assert held[2][1] == held[0][1]
     assert held[0][1] == _fresh(gfa, reads_a, tmp_path / "fa.fa", **kw)
     assert held[1][1] == _fresh(gfa, reads_b, tmp_path / "fb.fa", **kw)
+
+
+@pytest.mark.parametrize("route", ["device", "hit_path"])
+def test_run_leaves_no_sample_in_the_graph(tmp_path, route):
+    """A run's sample leaves nothing in the held graph's memo, a later
+    sample adds no entry to it, and each FASTA equals a fresh run's."""
+    gfa, reads_a, haps = _case(tmp_path, seed=41)
+    reads_b = _reads(tmp_path / "reads_b.fa", haps, 43, [(2500, 2)])
+    kw = {"save_index": str(tmp_path / "idx.npz")} \
+        if route == "hit_path" else {}
+    first = _run(gfa, reads_a, tmp_path / "a.fa", **kw)
+    _graph_keeps_no_sample(first)
+    keys = set(first.graph.memo)
+    second = _run(gfa, reads_b, tmp_path / "b.fa", **kw)
+    assert second.graph is first.graph and set(second.graph.memo) == keys
+    _graph_keeps_no_sample(second)
+    assert _answer(second, tmp_path / "b.fa") == _fresh(
+        gfa, reads_b, tmp_path / "fb.fa", **kw)
+
+
+@pytest.mark.parametrize("how", ["another_file", "clear_caches"])
+def test_dropped_graph_is_released(tmp_path, how):
+    """The held graph's batches, walk hashes and statics go when the panel
+    drops it, while a PipelineResult still refers to the graph; its
+    answer stays."""
+    gfa, reads, _ = _case(tmp_path)
+    res = _run(gfa, reads, tmp_path / "a.fa")
+    answer = _answer(res, tmp_path / "a.fa")
+    held = {key[0] for key in res.graph.memo}
+    assert {BATCHES[0], "walk_hashes", "solver_static"} <= held
+    if how == "another_file":
+        other, haps = _panel(29)
+        gfa2 = str(tmp_path / "other.gfa")
+        write_gfa(other, path=gfa2)
+        reads2 = _reads(tmp_path / "reads2.fa", haps, 30, [(3000, 1)])
+        res2 = _run(gfa2, reads2, tmp_path / "b.fa")
+        assert res2.graph is not res.graph
+        held_now = batches_bytes(res2.graph.memo)
+        assert held_now > 0
+    else:
+        onchip.clear_caches()
+        held_now = 0
+    assert res.graph.memo == {}
+    assert onchip.cache_counts()["pack_slot_bytes"] == held_now
+    assert _answer(res, tmp_path / "a.fa") == answer
+
+
+def test_unheld_graph_keeps_nothing(tmp_path):
+    """A GFA read from a pipe has no file key: its graph is not held, and
+    run_pipeline releases it before it returns."""
+    gfa, reads, _ = _case(tmp_path)
+    fifo = str(tmp_path / "graph.pipe")
+    os.mkfifo(fifo)
+
+    def feed():
+        with open(gfa, "rb") as src, open(fifo, "wb") as dst:
+            dst.write(src.read())
+    t = threading.Thread(target=feed)
+    t.start()
+    res = _run(fifo, reads, tmp_path / "a.fa")
+    t.join()
+    assert pangenome.held_graph() is None
+    assert res.graph.memo == {}
+    # the FASTA's header names the graph file; its sequence and the rest
+    # of the answer equal a run on the file's
+    got, want = _answer(res, tmp_path / "a.fa"), _fresh(
+        gfa, reads, tmp_path / "b.fa")
+    assert got[0].split(b"\n", 1)[1] == want[0].split(b"\n", 1)[1]
+    assert got[1:] == want[1:]
+
+
+def test_hit_path_statics_upload_once(tmp_path, monkeypatch):
+    """Ten hit-path samples back to back on the held panel: one upload of
+    the switch sources and of the lane tables, one of each sample's
+    occurrence index columns, and the tenth equals a fresh run."""
+    gfa, reads, haps = _case(tmp_path)
+    seen = {"esrc_tensors": 0, "lane_tensors": 0, "occ_index_tensors": 0}
+
+    def counted(name):
+        real = getattr(state, name)
+
+        def f(*a, **k):
+            seen[name] += 1
+            return real(*a, **k)
+        monkeypatch.setattr(state, name, f)
+    for name in seen:
+        counted(name)
+    kw = {"save_index": str(tmp_path / "idx.npz")}
+    routes = dict(pipeline.ANCHOR_ROUTE_STATS)
+    for i in range(10):
+        sample = _reads(tmp_path / f"r{i}.fa", haps, 100 + i,
+                        [(1000 + 400 * i, i % 4)])
+        res = _run(gfa, sample, tmp_path / f"s{i}.fa", **kw)
+    assert pipeline.ANCHOR_ROUTE_STATS["hits"] == routes["hits"] + 10
+    assert seen == {"esrc_tensors": 1, "lane_tensors": 1,
+                    "occ_index_tensors": 10}
+    _graph_keeps_no_sample(res)
+    assert _answer(res, tmp_path / "s9.fa") == _fresh(
+        gfa, sample, tmp_path / "f9.fa", **kw)
 
 
 def test_load_index_resolve_takes_the_held_graph(tmp_path):

@@ -1,22 +1,21 @@
 """The hit path's packed batches held on the device, on the CPU: join_many,
-given the panel's content fingerprint (pipeline._join_hits passes it),
-keeps its row plan and uploaded batches in the packed-batch slot, and a
-later join on the same panel, k, w and geometry is served from there.
-The panel is test_torch_widepanel's: 300 walks of the benchmark's recipe
-at ROWS 8, SUPER_BLOCKS 2.
+given the graph's memo (pipeline._join_hits passes it), keeps its row plan
+and uploaded batches there, and a later join on the same graph, k, w and
+geometry is served from there. The panel is test_torch_widepanel's: 300
+walks of the benchmark's recipe at ROWS 8, SUPER_BLOCKS 2.
 
 - A second inference on the held panel counts a hit of
   `cache_counts()["hits_slot"]`, and its per-walk (n_min, positions, ids)
   and FASTA equal a cold run's after clear_caches(); both answers read 0
   on every number of `phibench.check.judge`; the memory model counts the
   held batches as the slot's row.
-- A changed k, w, geometry or panel stores, and joins as a join without
-  the slot does; a walk holding N comes back None on a hit as on a
+- A changed k, w, geometry or graph stores, and joins as a join without
+  a memo does; a walk holding N comes back None on a hit as on a
   store, whatever the caller did with the last result; a plan over
-  PHI_TPU_PACK_CACHE_MB misses and holds nothing; a mesh, or a graph with
-  no fingerprint, misses and leaves the slot as it was.
-- A device-route run after a hit-path run replaces the slot, and the
-  reverse; clear_caches() empties it.
+  BATCHES_MAX_BYTES misses and holds nothing; a mesh misses and leaves
+  the graph's batches as they were.
+- A device-route run after a hit-path run replaces the graph's batches,
+  and the reverse; clear_caches() empties them.
 - The benchmark's `hits_slot_hit_share` reader reads 100, 0, and None
   where the program has no such counter.
 """
@@ -36,6 +35,7 @@ from phi_tpu_torch.anchors import device as tdev
 from phi_tpu_torch.config import Options
 from phi_tpu_torch.eval import onchip
 from phi_tpu_torch.eval.hbm_budget import budget_of_run
+from phi_tpu_torch.graph import pangenome
 from phi_tpu_torch.io.reads import load_read_batch
 from phi_tpu_torch.sketch import kernels as tk
 
@@ -43,7 +43,7 @@ K, W, R, T = 15, 5, 5.0, 1.0
 WIDE, NARROW, LENGTH = 300, 6, 4000
 ROWS, SB = 8, 2
 SEEDS = (2**31 + 23, 2**34 + 5)
-SLOT_ROW = "packed-batch cache slot (<= PHI_TPU_PACK_CACHE_MB)"
+SLOT_ROW = "packed batches held by the graph (<= BATCHES_MAX_BYTES)"
 
 
 def _traffic() -> dict:
@@ -53,17 +53,18 @@ def _traffic() -> dict:
 
 
 def _counts() -> dict:
-    return dict(tdev.HITS_SLOT_STATS)
+    return dict(tk.HITS_SLOT_STATS)
 
 
 def _delta(before: dict) -> dict:
-    return {c: n - before[c] for c, n in tdev.HITS_SLOT_STATS.items()}
+    return {c: n - before[c] for c, n in tk.HITS_SLOT_STATS.items()}
 
 
 def _slot_route():
-    """The route field of the slot's key (None when the slot is empty)."""
-    slot = tdev._PACK_CACHE.get("slot")
-    return None if slot is None else slot[0][-3 if len(slot) == 2 else -2]
+    """The route among the held graph's batch parameters (None when it
+    keeps no batches)."""
+    entry = pangenome.held_graph().memo.get(tk.BATCHES)
+    return None if entry is None else entry[0][4]
 
 
 class Case:
@@ -122,18 +123,19 @@ def served(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def narrow(tmp_path_factory):
+def narrow_panel(tmp_path_factory):
     """A 6-walk panel: the device route's width, and cheap joins."""
     case = Case(str(tmp_path_factory.mktemp("narrow")), NARROW, SEEDS[:1])
     res, _ = case.run("narrow")
     return case, res.graph
 
 
-@pytest.fixture(autouse=True)
-def cold_slot():
-    tdev.clear_pack_cache()
-    yield
-    tdev.clear_pack_cache()
+@pytest.fixture
+def narrow(narrow_panel):
+    """narrow_panel with its graph's memo empty."""
+    narrow_panel[1].release()
+    yield narrow_panel
+    narrow_panel[1].release()
 
 
 def test_second_inference_is_served_from_the_slot(served):
@@ -151,8 +153,7 @@ def test_second_inference_is_served_from_the_slot(served):
     with open(fa, "rb") as a, open(cold_fa, "rb") as b:
         assert a.read() == b.read()
     t = res.timings
-    for key in ("sketch_haps_hits_fingerprint", "sketch_haps_hits_plan",
-                "sketch_haps_hits_join_pack_wait"):
+    for key in ("sketch_haps_hits_plan", "sketch_haps_hits_join_pack_wait"):
         assert key in t and t[key] >= 0.0, key
     # the memory model's slot row is the held batches' bytes
     assert served["budget_slot"] == served["held_bytes"] > 0
@@ -177,11 +178,11 @@ def test_answers_match_the_reference(served, name):
     assert out["certified"]
 
 
-def _join(case, graph, k=K, w=W, rows=ROWS, sb=SB, panel=True):
+def _join(case, graph, k=K, w=W, rows=ROWS, sb=SB, memo=True):
     seqs = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
-    fp = tdev.graph_fingerprint(graph) if panel is True else panel
     return tk.join_many(seqs, k, w, *case.spectrum(k, w), device="cpu",
-                        rows_per_call=rows, super_blocks=sb, panel=fp)
+                        rows_per_call=rows, super_blocks=sb,
+                        memo=graph.memo if memo is True else memo)
 
 
 def _same_hits(got, want):
@@ -193,22 +194,27 @@ def _same_hits(got, want):
 
 
 @pytest.mark.parametrize("change", [dict(k=17), dict(w=7), dict(rows=4),
-                                    dict(sb=1), dict(panel="other")],
+                                    dict(sb=1), dict(memo="other")],
                          ids=["k", "w", "rows", "super_blocks", "panel"])
-def test_a_changed_key_stores(narrow, served, change):
+def test_a_changed_key_stores(narrow, change):
+    """A changed parameter misses and stores over the graph's batches;
+    another graph (its own memo) stores its own and leaves this one's."""
     case, graph = narrow
     _join(case, graph)
     again = _counts()
     _join(case, graph)
     assert _delta(again) == {"hits": 1, "stores": 0, "misses": 0}
-    if change.get("panel") == "other":
-        change = dict(panel=tdev.graph_fingerprint(served["a"][0].graph))
-        assert change["panel"] != tdev.graph_fingerprint(graph)
+    other = None
+    if change.get("memo") == "other":
+        other = pangenome.tensorize(graph.gfa)
+        change = dict(memo=other.memo)
     before = _counts()
     got = _join(case, graph, **change)
     assert _delta(before) == {"hits": 0, "stores": 1, "misses": 0}
-    _same_hits(got, _join(case, graph, **dict(change, panel=None)))
+    _same_hits(got, _join(case, graph, **dict(change, memo=None)))
     assert _delta(before) == {"hits": 0, "stores": 1, "misses": 0}
+    if other is not None:
+        assert tk.batches_bytes(graph.memo) == tk.batches_bytes(other.memo) > 0
 
 
 def test_served_plan_is_the_callers_own(narrow):
@@ -218,15 +224,16 @@ def test_served_plan_is_the_callers_own(narrow):
     case, graph = narrow
     seqs = [graph.walk_seq_codes(h).copy() for h in range(graph.num_walks)]
     seqs[1][100] = 4
-    fp = tdev.graph_fingerprint(graph)
     spectrum = case.spectrum()
     first = tk.join_many(seqs, K, W, *spectrum, device="cpu",
-                         rows_per_call=ROWS, super_blocks=SB, panel=fp)
+                         rows_per_call=ROWS, super_blocks=SB,
+                         memo=graph.memo)
     assert first[1] is None and first[0] is not None
     first[1] = first[0]
     before = _counts()
     again = tk.join_many(seqs, K, W, *spectrum, device="cpu",
-                         rows_per_call=ROWS, super_blocks=SB, panel=fp)
+                         rows_per_call=ROWS, super_blocks=SB,
+                         memo=graph.memo)
     assert _delta(before) == {"hits": 1, "stores": 0, "misses": 0}
     assert again[1] is None
     _same_hits([h for h in again if h is not None],
@@ -236,25 +243,21 @@ def test_served_plan_is_the_callers_own(narrow):
 def test_plan_over_the_cap_misses_and_holds_nothing(narrow, monkeypatch):
     case, graph = narrow
     want = _join(case, graph)
-    assert tdev.pack_cache_bytes() > 0
-    monkeypatch.setenv("PHI_TPU_PACK_CACHE_MB", "0")
+    assert tk.batches_bytes(graph.memo) > 0
+    monkeypatch.setattr(pangenome, "BATCHES_MAX_BYTES", 0)
     before = _counts()
     got = _join(case, graph)
     assert _delta(before) == {"hits": 0, "stores": 0, "misses": 1}
-    assert "slot" not in tdev._PACK_CACHE and tdev.pack_cache_bytes() == 0
+    assert tk.BATCHES not in graph.memo
     _same_hits(got, want)
 
 
-@pytest.mark.parametrize("why", ["mesh", "no_fingerprint"])
+@pytest.mark.parametrize("why", ["mesh"])
 def test_unkeyed_join_misses_and_leaves_the_slot(narrow, monkeypatch, why):
     case, graph = narrow
     want = _join(case, graph)
-    held = tdev._PACK_CACHE["slot"]
-    devices = None
-    if why == "mesh":
-        devices = [torch.device("cpu")] * 2
-    else:
-        monkeypatch.setattr(pipeline, "graph_fingerprint", lambda g: None)
+    held = graph.memo[tk.BATCHES]
+    devices = [torch.device("cpu")] * 2
     monkeypatch.setattr(tk, "ROWS", ROWS)
     monkeypatch.setattr(tk, "SUPER_BLOCKS", SB)
     seqs = [graph.walk_seq_codes(h) for h in range(graph.num_walks)]
@@ -262,7 +265,7 @@ def test_unkeyed_join_misses_and_leaves_the_slot(narrow, monkeypatch, why):
     got = pipeline._join_hits(graph, seqs, Options(k=K, w=W),
                               case.spectrum(), torch.device("cpu"), devices)
     assert _delta(before) == {"hits": 0, "stores": 0, "misses": 1}
-    assert tdev._PACK_CACHE["slot"] is held
+    assert graph.memo[tk.BATCHES] is held
     _same_hits(got, want)
 
 
@@ -287,11 +290,13 @@ def test_routes_replace_each_other(narrow, tmp_path):
 
 def test_clear_caches_empties_the_slot(narrow):
     case, graph = narrow
+    case.run("held")
+    graph = pangenome.held_graph()
     _join(case, graph)
-    assert tdev.pack_cache_bytes() > 0
+    assert tdev.pack_cache_bytes() == tk.batches_bytes(graph.memo) > 0
     assert onchip.cache_counts()["pack_slot_bytes"] > 0
     onchip.clear_caches()
-    assert "slot" not in tdev._PACK_CACHE
+    assert tk.BATCHES not in graph.memo
     assert onchip.cache_counts()["pack_slot_bytes"] == 0
     before = _counts()
     _join(case, graph)

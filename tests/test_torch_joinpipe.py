@@ -7,14 +7,14 @@ the plain twins:
   multiple of the window);
 - join_many at several batch counts around the window and with a forced
   overflow retry, against pallas_join_many: equal (n_min, positions, ids);
-- a second run on a re-loaded graph (the held panel dropped) hits the
-  packed-batch slot, the device cache and the switch-source slot, with
-  equal arrays and the same FASTA bytes; the solver statics are uploaded
-  once per ladder;
-- the slot's key holds the node segmentation (the JAX fingerprint does
-  not), and a run that does not cache empties the slot;
-- _dev_cached keeps at most 12 keys and no content key above its gate,
-  and walk_mat's hashes stay cached only below it;
+- a second run on the held panel finds every derived value in the
+  graph's memo (the packed batches, the switch sources, the solver
+  statics, the walk hashes), with equal arrays and the same FASTA bytes,
+  and a run on a re-loaded graph builds them again; the solver statics
+  are uploaded once per graph;
+- two chops of one sequence are two graphs, and each packs its batches;
+  a run whose batches pass the memo's limit empties the entry, and
+  walk_mat's hashes stay in the memo only below theirs;
 - a raising pack worker's exception reaches the caller;
 - the joins' spans hold the stages the JAX package's profiler lines
   time."""
@@ -35,9 +35,9 @@ from phi_tpu_torch.anchors import device as dv  # noqa: E402
 from phi_tpu_torch.config import Options  # noqa: E402
 from phi_tpu_torch.eval.hbm_budget import budget_of_run  # noqa: E402
 from phi_tpu_torch.eval.onchip import clear_caches  # noqa: E402
+from phi_tpu_torch.graph import pangenome  # noqa: E402
 from phi_tpu_torch.graph.pangenome import clear_panel  # noqa: E402
 from phi_tpu_torch.sketch import kernels as tk  # noqa: E402
-from phi_tpu_torch.solve import dp, prep  # noqa: E402
 from tests.test_torch_anchors import _instance, _spectrum  # noqa: E402
 from tests.test_torch_pipeline import _mosaic, _refinement  # noqa: E402
 from tests.test_torch_rows import (_assert_hits_equal, _many_seqs,  # noqa: E402
@@ -56,7 +56,7 @@ def cold_caches():
 
 
 @pytest.fixture(scope="module")
-def anchors_case(tmp_path_factory):
+def anchors_instance(tmp_path_factory):
     """(phi_tpu's graph, the port's graph, seqs, spectrum, phi_tpu's
     result) on a 5-walk x 9,000 bp instance."""
     graphs, reads = _instance(tmp_path_factory.mktemp("g"), n_haps=5)
@@ -67,6 +67,14 @@ def anchors_case(tmp_path_factory):
                                     interpret=True, **GEOM)
     assert want is not None
     return jgraph, graph, seqs, sp, want
+
+
+@pytest.fixture
+def anchors_case(anchors_instance):
+    """anchors_instance with the port graph's memo empty: a cold join."""
+    anchors_instance[1].release()
+    yield anchors_instance
+    anchors_instance[1].release()
 
 
 def _port_join(case, **kw):
@@ -101,7 +109,8 @@ def test_join_anchors_workers_and_slot_match_jax(anchors_case, monkeypatch,
     assert dv.PACK_CACHE_STATS["hits"] == stats["hits"] + 1
     for got in (miss, hit):
         _assert_same(got, want_min, want_occ)
-    assert miss[1].pack_bytes == hit[1].pack_bytes == dv.pack_cache_bytes() > 0
+    assert miss[1].pack_bytes == hit[1].pack_bytes == \
+        tk.batches_bytes(anchors_case[1].memo) > 0
 
 
 @pytest.fixture(scope="module")
@@ -143,47 +152,57 @@ def _run(gfa, reads, out, **kw):
 
 
 def test_rerun_hits_every_cache(tmp_path):
-    """Run 2 re-loads the graph (the held panel dropped): the slot, the
-    device cache (by content) and the switch-source slot hit; its arrays
-    and FASTA equal run 1's."""
+    """Run 2 takes the held panel: its join is served from the graph's
+    batches, and the switch sources, solver statics and walk hashes are
+    run 1's very objects; run 3, on a re-loaded graph (the panel
+    dropped), packs and builds them anew. The arrays and FASTAs of the
+    three are equal."""
     gfa, reads = _mosaic(tmp_path)
     kw = dict(recombination=5.0)
-    before = (dict(dv.PACK_CACHE_STATS), dict(dp.DEV_CACHE_STATS),
-              dict(prep.ESRC_CACHE_STATS))
+    graph_keys = {tk.BATCHES, ("switch_sources",), ("solver_static", "cpu"),
+                  ("walk_hashes", "cpu")}
+    before = dict(dv.PACK_CACHE_STATS)
     r1 = _run(gfa, reads, str(tmp_path / "a.fa"), **kw)
-    mid = (dict(dv.PACK_CACHE_STATS), dict(dp.DEV_CACHE_STATS),
-           dict(prep.ESRC_CACHE_STATS))
-    clear_panel()
+    kept = dict(r1.graph.memo)
+    assert graph_keys <= set(kept)
+    mid = dict(dv.PACK_CACHE_STATS)
     r2 = _run(gfa, reads, str(tmp_path / "b.fa"), **kw)
-    pack, devc, esrc = (dict(dv.PACK_CACHE_STATS), dict(dp.DEV_CACHE_STATS),
-                        dict(prep.ESRC_CACHE_STATS))
-    assert mid[0]["stores"] == before[0]["stores"] + 1
-    assert pack["hits"] == mid[0]["hits"] + 1
-    assert pack["stores"] == mid[0]["stores"]
-    assert mid[1]["builds"] - before[1]["builds"] >= 3
-    assert devc["builds"] == mid[1]["builds"]
-    assert devc["content_hits"] >= mid[1]["content_hits"] + 1
-    assert mid[2]["builds"] == before[2]["builds"] + 1
-    assert esrc == {"hits": mid[2]["hits"] + 1, "builds": mid[2]["builds"]}
-    assert r1.graph is not r2.graph
-    with open(tmp_path / "a.fa", "rb") as a, open(tmp_path / "b.fa",
-                                                  "rb") as b:
-        assert a.read() == b.read()
-    o1, o2 = r1.anchors.device_occ, r2.anchors.device_occ
-    assert np.array_equal(r1.anchors.per_hap_minimizers,
-                          r2.anchors.per_hap_minimizers)
-    for a, b in zip(o1.materialize(), o2.materialize()):
-        assert np.array_equal(a, b)
-    # the memory model's slot row is the slot's bytes
-    slot = budget_of_run(r2, 31, 25)["per_device_bytes"]["anchors"][
-        "packed-batch cache slot (<= PHI_TPU_PACK_CACHE_MB)"]
-    assert slot == o2.pack_bytes == dv.pack_cache_bytes() > 0
+    assert r2.graph is r1.graph
+    for key in graph_keys:
+        assert r2.graph.memo[key] is kept[key], key
+    pack = dict(dv.PACK_CACHE_STATS)
+    assert mid["stores"] == before["stores"] + 1
+    assert pack == {**mid, "hits": mid["hits"] + 1}
+    clear_panel()
+    assert not r1.graph.memo
+    r3 = _run(gfa, reads, str(tmp_path / "c.fa"), **kw)
+    assert r3.graph is not r1.graph
+    assert dv.PACK_CACHE_STATS == {**pack, "stores": pack["stores"] + 1}
+    assert graph_keys <= set(r3.graph.memo)
+    fastas = []
+    for name in "abc":
+        with open(tmp_path / f"{name}.fa", "rb") as f:
+            fastas.append(f.read())
+    assert fastas[0] == fastas[1] == fastas[2]
+    o1 = r1.anchors.device_occ
+    for r in (r2, r3):
+        assert np.array_equal(r1.anchors.per_hap_minimizers,
+                              r.anchors.per_hap_minimizers)
+        for a, b in zip(o1.materialize(), r.anchors.device_occ.materialize()):
+            assert np.array_equal(a, b)
+    # the memory model's batches row is the held batches' bytes
+    o2 = r2.anchors.device_occ
+    held = budget_of_run(r2, 31, 25)["per_device_bytes"]["anchors"][
+        "packed batches held by the graph (<= BATCHES_MAX_BYTES)"]
+    assert held == o2.pack_bytes == tk.batches_bytes(r3.graph.memo) \
+        == dv.pack_cache_bytes() > 0
 
 
 def test_solver_statics_upload_once_per_ladder(tmp_path, monkeypatch):
     """The open-gap instance takes several solves on its ladder; the
-    switch sources and lane tables are uploaded once in the first run and
-    not at all in a second run on the re-loaded graph."""
+    switch sources and lane tables are uploaded once in the first run, not
+    at all in a second run on the held panel, and once more for a
+    re-loaded graph."""
     gfa, reads = _refinement(tmp_path, seed=19)
     kw = dict(k=4, w=2, recombination=1.0, lagrangian_rounds=6)
     seen = {"esrc": 0, "lanes": 0, "solves": 0}
@@ -204,10 +223,12 @@ def test_solver_statics_upload_once_per_ladder(tmp_path, monkeypatch):
     assert r1.anchors.device_occ is not None
     assert seen["solves"] >= 2
     assert (seen["esrc"], seen["lanes"]) == (1, 1)
-    clear_panel()
     _run(gfa, reads, str(tmp_path / "b.fa"), **kw)
     assert seen["solves"] >= 4
     assert (seen["esrc"], seen["lanes"]) == (1, 1)
+    clear_panel()
+    _run(gfa, reads, str(tmp_path / "c.fa"), **kw)
+    assert (seen["esrc"], seen["lanes"]) == (2, 2)
 
 
 def _chain_gfa(path, cuts, seq):
@@ -225,11 +246,11 @@ def _chain_gfa(path, cuts, seq):
 
 
 def test_slot_key_holds_the_node_segmentation(tmp_path):
-    """Two chops of one sequence: the JAX fingerprint is the same for both
-    (the reference's known fault), the port's is not, the second run
-    misses the slot, and its result equals a cold run's."""
-    from phi_tpu.graph import tensorize
-    from phi_tpu.io.gfa import read_gfa
+    """Two chops of one sequence, equal walk sequences and walk_mat (the
+    reference's content fingerprint, which leaves the node lengths out,
+    would serve one chop's batches to the other): the port's are two
+    graphs with a memo each, so the second packs its own batches, and its
+    result equals a cold run's."""
     from phi_tpu_torch.graph.pangenome import tensorize as port_tensorize
     from phi_tpu_torch.io.gfa import read_gfa as port_read_gfa
     rng = np.random.default_rng(5)
@@ -238,11 +259,8 @@ def test_slot_key_holds_the_node_segmentation(tmp_path):
     cuts_b = [c + 37 for c in cuts_a]
     paths = [_chain_gfa(tmp_path / f"{n}.gfa", c, seq)
              for n, c in (("a", cuts_a), ("b", cuts_b))]
-    jg = [tensorize(read_gfa(p)) for p in paths]
-    assert jdev._graph_fingerprint(jg[0]) == jdev._graph_fingerprint(jg[1])
     g = [port_tensorize(port_read_gfa(p)) for p in paths]
     assert np.array_equal(g[0].walk_mat, g[1].walk_mat)
-    assert dv.graph_fingerprint(g[0]) != dv.graph_fingerprint(g[1])
     sp = _spectrum([seq[2000:2600], seq[7000:7900]], K, W)
 
     def join(graph):
@@ -257,7 +275,8 @@ def test_slot_key_holds_the_node_segmentation(tmp_path):
     second = join(g[1])
     assert dv.PACK_CACHE_STATS["hits"] == stats["hits"]
     assert dv.PACK_CACHE_STATS["stores"] == stats["stores"] + 1
-    dv.clear_pack_cache()
+    assert tk.batches_bytes(g[0].memo) > 0 and tk.batches_bytes(g[1].memo) > 0
+    g[1].release()
     cold = join(g[1])
     _assert_same(second, cold[0], cold[1])
     first = join(g[0])[1]
@@ -268,59 +287,32 @@ def test_slot_key_holds_the_node_segmentation(tmp_path):
 
 def test_run_above_the_gate_empties_the_slot(anchors_case, monkeypatch):
     want_min, want_occ = anchors_case[4]
+    memo = anchors_case[1].memo
     _port_join(anchors_case)
-    assert dv.pack_cache_bytes() > 0
+    assert tk.batches_bytes(memo) > 0
     drops = dv.PACK_CACHE_STATS["drops"]
-    monkeypatch.setenv("PHI_TPU_PACK_CACHE_MB", "0")
+    monkeypatch.setattr(pangenome, "BATCHES_MAX_BYTES", 0)
     got = _port_join(anchors_case)
-    assert dv.pack_cache_bytes() == 0 and "slot" not in dv._PACK_CACHE
+    assert tk.batches_bytes(memo) == 0 and tk.BATCHES not in memo
     assert dv.PACK_CACHE_STATS["drops"] == drops + 1
     assert got[1].pack_bytes == 0
     _assert_same(got, want_min, want_occ)
 
 
 def test_walk_hashes_kept_only_below_the_gate(anchors_case, monkeypatch):
-    """walk_mat and its prefix hashes stay in the device cache when a
-    re-run can find them by content; above PHI_TPU_DEV_CACHE_MB the join
-    builds them for itself and leaves nothing in the cache."""
+    """walk_mat and its prefix hashes stay in the graph's memo where
+    walk_mat is at most WALK_HASHES_MAX_BYTES; above it the join builds
+    them for itself and leaves nothing there."""
     want_min, want_occ = anchors_case[4]
+    graph = anchors_case[1]
     _port_join(anchors_case)
-    assert [k for k in dp._DEV_CACHE if k[-2:] == ("wm_ph", "cpu")]
-    dp.clear_dev_cache()
-    monkeypatch.setenv("PHI_TPU_DEV_CACHE_MB", "0")
+    assert ("walk_hashes", "cpu") in graph.memo
+    graph.release()
+    monkeypatch.setattr(pangenome, "WALK_HASHES_MAX_BYTES",
+                        graph.walk_mat.nbytes - 1)
     _assert_same(_port_join(anchors_case), want_min, want_occ)
-    assert not dp._DEV_CACHE
-
-
-def test_dev_cached_evicts_at_12_and_gates_content(monkeypatch):
-    built = []
-
-    def build(a):
-        return lambda: built.append(a) or (state._t(a, state.torch.int64,
-                                                    "cpu"),)
-    arrays = [np.full(16, i, np.int32) for i in range(13)]
-    monkeypatch.setenv("PHI_TPU_DEV_CACHE_MB", "0")   # id keys only
-    for a in arrays:
-        dp._dev_cached(a, ("t",), "cpu", build(a))
-    assert len(dp._DEV_CACHE) == dp._DEV_CACHE_CAP == 12
-    dp._dev_cached(arrays[-1], ("t",), "cpu", build(arrays[-1]))
-    assert len(built) == 13       # an id hit
-    dp._dev_cached(arrays[0], ("t",), "cpu", build(arrays[0]))
-    assert len(built) == 14       # the first key was dropped
-    copy = arrays[5].copy()
-    dp._dev_cached(copy, ("t",), "cpu", build(copy))
-    assert len(built) == 15       # no content key above the gate
-    monkeypatch.setenv("PHI_TPU_DEV_CACHE_MB", "256")
-    dp.clear_dev_cache()
-    first = dp._dev_cached(arrays[1], ("t",), "cpu", build(arrays[1]))
-    again = dp._dev_cached(arrays[1].copy(), ("t",), "cpu", build(None))
-    assert again is first and len(built) == 16   # a content hit
-    for _ in range(dp._DEV_CACHE_CAP):   # each content hit adds an id key
-        dp._dev_cached(arrays[1].copy(), ("t",), "cpu", build(None))
-    assert len(dp._DEV_CACHE) == dp._DEV_CACHE_CAP and len(built) == 16
-    other = dp._dev_cached(arrays[1].copy(), ("t",), "meta",
-                           build(arrays[1]))
-    assert other is not first and len(built) == 17  # keys hold the device
+    assert ("walk_hashes", "cpu") not in graph.memo
+    assert tk.BATCHES in graph.memo
 
 
 def test_raising_pack_worker_propagates(anchors_case, monkeypatch):
@@ -334,7 +326,7 @@ def test_raising_pack_worker_propagates(anchors_case, monkeypatch):
     monkeypatch.setenv("PHI_TPU_PACK_WORKERS", "3")
     with pytest.raises(RuntimeError, match="pack failed"):
         _port_join(anchors_case)
-    assert "slot" not in dv._PACK_CACHE
+    assert tk.BATCHES not in anchors_case[1].memo
 
 
 def test_raising_join_many_packer_propagates(many_case, monkeypatch):
@@ -364,10 +356,12 @@ def _labels(err: str, prefix: str) -> set:
 
 
 # the stage labels of the JAX package's [danchor-prof] / [join-prof]
-# lines, each with the port's span of that stage (under the caller's span);
-# the lines' other labels are counts, which no span holds
+# lines, each with the port's span of that stage (under the caller's span),
+# None for the content fingerprint, which the port, keeping its batches in
+# the graph's memo, does not take; the lines' other labels are counts,
+# which no span holds
 JAX_STAGES = {"rows+seqscan": "plan", "make_cuckoo": "cuckoo",
-              "fingerprint": "fingerprint", "loop_done": "join",
+              "fingerprint": None, "loop_done": "join",
               "pack_wait": "join_pack_wait", "dispatch": "join_dispatch",
               "harvest": "join_harvest", "batch harvest": "join_harvest",
               "ph_build": "walk_hashes", "finalize+stats": "filter"}
@@ -405,7 +399,8 @@ def test_join_spans_carry_the_jax_labels(anchors_case, many_case,
             return tk.join_many(mseqs, k, w, sp_hi, sp_lo, device="cpu",
                                 rows_per_call=5, super_blocks=2)
     assert labels and labels <= set(JAX_STAGES) | JAX_COUNTS
-    want = {JAX_STAGES[label] for label in labels if label in JAX_STAGES}
+    want = {JAX_STAGES[label] for label in labels
+            if JAX_STAGES.get(label) is not None}
     with recording() as t:
         with span("sketch_haps"):
             port()

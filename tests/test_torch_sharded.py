@@ -29,12 +29,14 @@ CPU = torch.device("cpu")
 
 
 def _port_tables(t):
-    names = {f.name for f in dataclasses.fields(tprep.SolverTables)}
+    names = {f.name for f in dataclasses.fields(tprep.SolverTables)
+             if f.compare}
     return tprep.SolverTables(**{n: getattr(t, n) for n in names})
 
 
 def _port_anchors(a):
-    names = {f.name for f in dataclasses.fields(tjoin.AnchorTables)}
+    names = {f.name for f in dataclasses.fields(tjoin.AnchorTables)
+             if f.compare}
     return tjoin.AnchorTables(**{n: getattr(a, n) for n in names
                                  if n != "device_occ"})
 

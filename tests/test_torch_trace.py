@@ -126,8 +126,8 @@ PHASE_KEYS = {"load_graph", "load_reads", "sketch_reads", "sketch_haps",
 # the direct children of each span that has them
 CHILDREN = {
     "load_graph": ("parse", "tensorize"),
-    "sketch_haps": ("walk_codes", "plan", "cuckoo", "fingerprint", "join",
-                    "walk_hashes", "filter"),
+    "sketch_haps": ("walk_codes", "plan", "cuckoo", "join", "walk_hashes",
+                    "filter"),
     "sketch_haps_join": ("pack_wait", "dispatch", "harvest"),
     "solve": ("prep", "tables", "exec", "fetch", "hydrate", "decode"),
     "emit": ("path_seq", "write")}
